@@ -1,0 +1,88 @@
+"""Weight bridge: flax `{params, batch_stats}` trees -> the port's state_dict.
+
+Counterpart of `avtubes/core/torch_export.py` / `core/torch_import.py`, with
+its own copy of the name map.  The input is a plain nested dict of numpy
+arrays (the caller fetches it from the device; this module never sees a
+framework other than torch).  The port's sub-modules carry the original
+PyTorch model's names, so the translation is a rename:
+
+    stem_vision / stem_audio / stem_flow -> conv1 / conv1_a / conv1_flow
+    stem_bn                              -> bn1
+    layer{L}_block{B}.conv{1,2}.kernel   -> layer{L}.{B}.conv{1,2}.weight
+    ...bn{1,2}.{scale,bias}              -> layer{L}.{B}.bn{1,2}.{weight,bias}
+    batch_stats ...bn.{mean,var}         -> ...running_{mean,var}
+    downsample_conv / downsample_bn      -> downsample.{0,1}
+
+Conv kernels transpose HWIO -> OIHW.  BatchNorm's `num_batches_tracked`
+is emitted as 0, so `load_state_dict(sd, strict=True)` passes on the port's
+`AVENet` / `ResNet2D` (which own one stem each and no classifier head).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_TORCH_NAME_BY_STEM = {"stem_vision": "conv1", "stem_audio": "conv1_a",
+                       "stem_flow": "conv1_flow"}
+
+
+def _bn_out(params_node: Mapping, stats_node: Mapping, prefix: str,
+            out: dict[str, torch.Tensor]) -> None:
+    scale = np.asarray(params_node["scale"], np.float32)
+    out[f"{prefix}.weight"] = torch.from_numpy(scale.copy())
+    out[f"{prefix}.bias"] = torch.from_numpy(
+        np.array(params_node["bias"], np.float32))
+    # an un-trained tree may carry no batch_stats yet: identity stats
+    out[f"{prefix}.running_mean"] = torch.from_numpy(
+        np.array(stats_node.get("mean", np.zeros_like(scale)), np.float32))
+    out[f"{prefix}.running_var"] = torch.from_numpy(
+        np.array(stats_node.get("var", np.ones_like(scale)), np.float32))
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def resnet2d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
+                       ) -> dict[str, torch.Tensor]:
+    """One backbone's flax tree -> state_dict entries under `prefix`."""
+    out: dict[str, torch.Tensor] = {}
+
+    def kernel(node) -> torch.Tensor:  # HWIO -> OIHW
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1)))
+
+    for name, node in sorted(params.items()):
+        if name == "stem_bn":
+            _bn_out(node, stats.get("stem_bn", {}), f"{prefix}bn1", out)
+        elif name in _TORCH_NAME_BY_STEM:
+            out[f"{prefix}{_TORCH_NAME_BY_STEM[name]}.weight"] = kernel(node)
+        elif "_block" in name:
+            layer, block = name.split("_block")
+            tp = f"{prefix}{layer}.{block}."
+            block_stats = stats.get(name, {})
+            for sub, val in sorted(node.items()):
+                if sub in ("conv1", "conv2"):
+                    out[f"{tp}{sub}.weight"] = kernel(val)
+                elif sub in ("bn1", "bn2"):
+                    _bn_out(val, block_stats.get(sub, {}), tp + sub, out)
+                elif sub == "downsample_conv":
+                    out[f"{tp}downsample.0.weight"] = kernel(val)
+                elif sub == "downsample_bn":
+                    _bn_out(val, block_stats.get(sub, {}), f"{tp}downsample.1", out)
+                else:
+                    raise ValueError(f"unknown block entry {name}.{sub}")
+        else:
+            raise ValueError(f"unknown backbone entry {name}")
+    return out
+
+
+def avenet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`{'params', 'batch_stats'}` of the JAX package's AVENet, as nested
+    dicts of numpy arrays -> state_dict for `avtubes_torch.models.avenet.AVENet`
+    (loads with ``strict=True``)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: dict[str, torch.Tensor] = {}
+    for net in ("imgnet", "audnet"):
+        out.update(resnet2d_from_flax(params[net], stats.get(net, {}), f"{net}."))
+    return out

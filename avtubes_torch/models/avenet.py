@@ -1,0 +1,70 @@
+"""AVENet: the 2D per-frame audio-visual localization model (PyTorch).
+
+Counterpart of `avtubes/models/avenet.py`: an image ResNet-18 producing a
+14x14x512 spatial map and an audio ResNet-18 globally max-pooled to a
+512-d vector, joined by the hard-way similarity head.
+
+Shape conventions (NHWC at the interface, like the JAX package):
+  image: (B, 224, 224, 3)                  -> img feats (B, 14, 14, 512)
+  audio: (B, 257, 431, 1) log-spectrogram  -> aud feats (B, 512)
+
+Train/eval is the module's own mode (`model.train()` / `model.eval()`), the
+PyTorch idiom, where the JAX methods take a `train` flag.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_head
+from avtubes_torch.models.resnet2d import ResNet2D
+
+
+class AVENet(nn.Module):
+    def __init__(self, hardway: HardwayConfig = HardwayConfig(),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.hardway = hardway
+        self.imgnet = ResNet2D(modal="vision", generator=generator)
+        self.audnet = ResNet2D(modal="audio", generator=generator)
+
+    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H/16, W/16, 512) spatial features."""
+        return self.imgnet(image)
+
+    def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
+        """(B, F, T, 1) -> (B, 512) via global max pool."""
+        return self.audnet(audio).amax(dim=(1, 2))
+
+    def forward(self, image: torch.Tensor, audio: torch.Tensor,
+                aud_all: torch.Tensor | None = None,
+                pool_offset: int | torch.Tensor = 0) -> HardwayOutput:
+        # pool_offset: index of this batch's first own-pair column within
+        # aud_all (shard_index * B for an all-gathered pool)
+        img = self.encode_image(image)
+        aud = self.encode_audio(audio)
+        return hardway_head(img, aud, self.hardway, aud_all=aud_all,
+                            pool_offset=pool_offset)
+
+    def head(self, img_feats: torch.Tensor, aud_feats: torch.Tensor,
+             aud_all: torch.Tensor | None = None,
+             pool_offset: int | torch.Tensor = 0) -> HardwayOutput:
+        """The hard-way head alone, with this module's HardwayConfig (for
+        callers that compute features outside)."""
+        return hardway_head(img_feats, aud_feats, self.hardway,
+                            aud_all=aud_all, pool_offset=pool_offset)
+
+    def forward_shared_audio(self, frames: torch.Tensor,
+                             audio: torch.Tensor) -> HardwayOutput:
+        """Forward with one audio clip shared by a group of frames: encode
+        the B unique spectrograms once, repeat the pooled features over the
+        frames-per-clip factor.  Used by per-frame eval, where every frame
+        of a video is scored against the same clip audio.
+
+        frames: (B*K, H, W, 3); audio: (B, F, T, 1) with K = frames/clip.
+        """
+        aud = self.encode_audio(audio)                                # (B, 512)
+        aud = aud.repeat_interleave(frames.shape[0] // aud.shape[0], dim=0)
+        img = self.encode_image(frames)
+        return hardway_head(img, aud, self.hardway)

@@ -1,0 +1,144 @@
+"""What the port may import, and what it does where there is no card."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "avtubes_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "avtubes"}
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py"))
+
+
+def test_expected_modules_exist():
+    for name in ("core.device", "data.spectrogram", "ops.stft", "models.resnet2d",
+                 "models.hardway", "models.avenet", "core.convert",
+                 "ops.median_select", "evaluation.postprocess", "data.transforms",
+                 "data.audio", "core.export", "core.serving", "cli.serve",
+                 "ops._build"):
+        assert f"avtubes_torch.{name}" in MODULES
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
+        "median_select.cu", "stft.cu"]
+
+
+def test_importing_every_module_pulls_in_no_jax_and_builds_nothing():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "assert 'PIL' not in sys.modules, 'PIL imported eagerly'\n"
+        "print('clean', len(mods))\n")
+    built_before = sorted((PORT / "_build").glob("*"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"clean {len(MODULES)}"
+    assert sorted((PORT / "_build").glob("*")) == built_before
+
+
+def test_light_module_import_stays_light():
+    code = ("import sys, avtubes_torch.data.audio\n"
+            "assert 'torch' not in sys.modules and 'jax' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  ROOT / "scripts" / "profile_torch_serving.py",
+                                  *sorted(PORT.rglob("*.py"))],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_serving_path_calls_no_library_transform_or_selection():
+    """The modules on the serving path never call the library ops that the
+    two kernels replace (the sort oracle lives in `median_mask_sort` only)."""
+    banned = {"stft", "rfft", "fft", "kthvalue", "median", "compile"}
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) \
+                    and node.value.id == "torch":
+                assert node.attr not in banned, f"{path}: torch.{node.attr}"
+                if node.attr == "sort":
+                    assert path.name == "median_select.py", f"{path}: torch.sort"
+
+
+def test_default_device_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    from avtubes_torch.core.device import resolve_device
+    from avtubes_torch.core.export import export_localizer, load_artifact
+    from avtubes_torch.core.serving import ArtifactRunner
+    from avtubes_torch.data.spectrogram import SpectrogramConfig
+    from avtubes_torch.models.avenet import AVENet
+    from avtubes_torch.ops.median_select import median_mask_cuda
+    from avtubes_torch.ops.stft import log_spectrogram_cuda
+
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    cfg = SpectrogramConfig(samplerate=8000, seconds=1)
+    blob = export_localizer(AVENet(generator=torch.Generator().manual_seed(0)),
+                            cfg, image_size=32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ArtifactRunner(blob)                     # default device: the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_artifact(blob)
+    # the kernel wrappers refuse a CPU tensor; they do not run it elsewhere
+    with pytest.raises(ValueError):
+        median_mask_cuda(torch.zeros(1, 4, 4), 8)
+    with pytest.raises(ValueError):
+        log_spectrogram_cuda(torch.zeros(1, cfg.num_samples), cfg)
+    model_path = tmp_path / "m.avt"
+    model_path.write_bytes(blob)
+    out = subprocess.run(
+        [sys.executable, "-m", "avtubes_torch.cli.serve", "--model", str(model_path),
+         "--port", "0"], cwd=ROOT, text=True, capture_output=True, timeout=300)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, text=True,
+                         capture_output=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and out.stdout.strip() == ""
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from avtubes_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "find_nvcc",
+                        lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    # a compiler that fails: the error carries its stderr
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'stft.cu(1): error: boom' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="boom"):
+        _build.build()
+    assert not list((tmp_path / "_build").glob("*.so"))

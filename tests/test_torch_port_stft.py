@@ -1,0 +1,147 @@
+"""Port of the log-spectrogram front end (K1 module) against the JAX package.
+
+The same numpy-made waveforms go through `avtubes.data.spectrogram` /
+`avtubes.ops.stft` (Pallas in interpret mode) and through
+`avtubes_torch.data.spectrogram` / `avtubes_torch.ops.stft` on the CPU,
+where the port's wrapper takes the kernel's plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from avtubes.data import spectrogram as jspec
+from avtubes.ops.stft import _log_spectrogram_pallas
+from avtubes_torch.data import spectrogram as tspec
+from avtubes_torch.ops import stft as tstft
+
+# float32 DFT sums in another order on each side, then a log: the JAX
+# package's own scipy-parity bar
+ATOL = 2e-4
+# the interpret-mode Pallas kernel vs XLA is itself held to 5e-4
+ATOL_PALLAS = 5e-4
+
+
+def _cfgs(seconds):
+    return (jspec.SpectrogramConfig(samplerate=8000, seconds=seconds),
+            tspec.SpectrogramConfig(samplerate=8000, seconds=seconds))
+
+
+def _waves(cfg, batch, seed):
+    rng = np.random.RandomState(seed)
+    return np.clip(rng.randn(batch, cfg.num_samples) * 0.2, -1, 1).astype(np.float32)
+
+
+def test_config_and_constants_are_the_same():
+    jcfg, tcfg = _cfgs(2)
+    assert tcfg.shape == jcfg.shape and tcfg.hop == jcfg.hop
+    assert tspec.SpectrogramConfig().shape == (257, 431)
+    for a, b in zip(tspec._dft_matrices(tcfg), jspec._dft_matrices(jcfg)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tspec._onesided_scale(tcfg),
+                                  jspec._onesided_scale(jcfg))
+    assert tspec.AUDIO_TRANSPORTS == jspec.AUDIO_TRANSPORTS
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_log_spectrogram_matches_jax(batched):
+    jcfg, tcfg = _cfgs(2)
+    x = _waves(tcfg, 3, 0)
+    x = x if batched else x[0]
+    want = np.asarray(jspec.log_spectrogram(jnp.asarray(x), jcfg))
+    got = tspec.log_spectrogram(torch.from_numpy(x), tcfg, impl="kernel").numpy()
+    plain = tstft.log_spectrogram_plain(torch.from_numpy(x), tcfg).numpy()
+    assert got.shape == want.shape == (*x.shape[:-1], *tcfg.shape)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # on a CPU tensor the wrapper IS the plain version
+    np.testing.assert_array_equal(got, plain)
+
+
+def test_plain_matches_pallas_interpret():
+    jcfg, tcfg = _cfgs(2)
+    x = _waves(tcfg, 2, 1)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_log_spectrogram_pallas(jnp.asarray(x), jcfg, tile=32))
+    got = tstft.log_spectrogram_plain(torch.from_numpy(x), tcfg).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL_PALLAS)
+
+
+def test_matches_own_numpy_references():
+    _, tcfg = _cfgs(1)
+    x = _waves(tcfg, 2, 2)
+    got = tspec.log_spectrogram(torch.from_numpy(x), tcfg).numpy()
+    for i in range(2):
+        np.testing.assert_allclose(got[i], tspec.log_spectrogram_np(x[i], tcfg),
+                                   atol=ATOL)
+        np.testing.assert_allclose(tspec.log_spectrogram_np_f32(x[i], tcfg),
+                                   tspec.log_spectrogram_np(x[i], tcfg), atol=1e-5)
+
+
+@pytest.mark.parametrize("transport", tspec.AUDIO_TRANSPORTS)
+def test_transport_dispatch_matches_jax(transport):
+    jcfg, tcfg = _cfgs(1)
+    x = _waves(tcfg, 2, 3)
+    payload = tspec.prepare_audio_payload(x, transport, tcfg)
+    shape, dtype = tspec.audio_payload_spec(transport, tcfg)
+    assert payload.shape[1:] == shape and payload.dtype == dtype
+    assert (shape, dtype) == jspec.audio_payload_spec(transport, jcfg)
+    # the numpy encoders are own copies: same bytes as the JAX package's
+    # (int16 rounding of a float32 host spectrogram may differ by one step
+    # between the native and the numpy encoder, so compare decoded values)
+    want = np.asarray(jspec.log_spectrogram(jnp.asarray(payload), jcfg))
+    got = tspec.log_spectrogram(torch.from_numpy(payload), tcfg).numpy()
+    assert got.shape == (2, *tcfg.shape) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # and every transport decodes to the float32 answer within its own step
+    ref = tspec.log_spectrogram(torch.from_numpy(x), tcfg).numpy()
+    step = {"float32": ATOL, "int16": 2e-3, "spec_int16": 1e-4,
+            "spec_int8": 1.0 / tspec.SPEC_INT8_SCALE}[transport]
+    np.testing.assert_allclose(got, ref, atol=step)
+
+
+def test_quantizers_match_jax():
+    rng = np.random.RandomState(4)
+    w = (rng.rand(1000).astype(np.float32) * 2 - 1)
+    s = (rng.rand(50, 7).astype(np.float32) * 3.3 - 1.34)
+    np.testing.assert_array_equal(tspec.quantize_int16_waveform(w),
+                                  jspec.quantize_int16_waveform(w))
+    np.testing.assert_array_equal(tspec.quantize_int16_spectrogram(s),
+                                  jspec.quantize_int16_spectrogram(s))
+    np.testing.assert_array_equal(tspec.quantize_int8_spectrogram(s),
+                                  jspec.quantize_int8_spectrogram(s))
+    s16 = tspec.quantize_int16_spectrogram(s)
+    np.testing.assert_array_equal(tspec.spec_int16_to_int8(s16),
+                                  jspec.spec_int16_to_int8(s16))
+
+
+def test_zero_waveform_is_exactly_the_floor():
+    _, tcfg = _cfgs(1)
+    out = tspec.log_spectrogram(torch.zeros(2, tcfg.num_samples), tcfg)
+    floor = np.float32(np.log(np.float32(1e-7))) / np.float32(12.0)
+    assert out.shape == (2, *tcfg.shape)
+    assert torch.all(out == out[0, 0, 0])
+    assert abs(float(out[0, 0, 0]) - float(floor)) <= 1e-6
+
+
+def test_frame_signal_general_hop_matches_jax():
+    jcfg = jspec.SpectrogramConfig(samplerate=4000, seconds=1, nperseg=128, noverlap=32)
+    tcfg = tspec.SpectrogramConfig(samplerate=4000, seconds=1, nperseg=128, noverlap=32)
+    x = _waves(tcfg, 2, 5)
+    np.testing.assert_array_equal(
+        tspec.frame_signal(torch.from_numpy(x), tcfg).numpy(),
+        np.asarray(jspec.frame_signal(jnp.asarray(x), jcfg)))
+    np.testing.assert_allclose(
+        tspec.log_spectrogram(torch.from_numpy(x), tcfg).numpy(),
+        np.asarray(jspec.log_spectrogram(jnp.asarray(x), jcfg)), atol=ATOL)
+
+
+def test_cuda_wrapper_refuses_cpu_tensor_and_bad_impl():
+    _, tcfg = _cfgs(1)
+    x = torch.zeros(1, tcfg.num_samples)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tstft.log_spectrogram_cuda(x, tcfg)
+    with pytest.raises(ValueError, match="impl"):
+        tstft.log_spectrogram_fused(x, tcfg, impl="auto")
+    assert tstft.log_spectrogram_cuda.launches == 0
