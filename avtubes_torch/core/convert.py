@@ -1,4 +1,4 @@
-"""Weight bridge: flax `{params, batch_stats}` trees -> the port's state_dict.
+"""Weight bridge: flax parameter trees -> the port's state_dicts.
 
 Counterpart of `avtubes/core/torch_export.py` / `core/torch_import.py`, with
 its own copy of the name map.  The input is a plain nested dict of numpy
@@ -16,6 +16,9 @@ PyTorch model's names, so the translation is a rename:
 Conv kernels transpose HWIO -> OIHW.  BatchNorm's `num_batches_tracked`
 is emitted as 0, so `load_state_dict(sd, strict=True)` passes on the port's
 `AVENet` / `ResNet2D` (which own one stem each and no classifier head).
+
+`FlowNetLite` keeps the flax names, so `flownet_from_flax` only joins the
+path with dots, transposes the kernels and carries `corr_temp`.
 """
 
 from __future__ import annotations
@@ -85,4 +88,27 @@ def avenet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for net in ("imgnet", "audnet"):
         out.update(resnet2d_from_flax(params[net], stats.get(net, {}), f"{net}."))
+    return out
+
+
+def flownet_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """`params` of the JAX package's FlowNetLite, as nested dicts of numpy
+    arrays -> state_dict for `avtubes_torch.models.flownet.FlowNetLite`
+    (loads with ``strict=True``): conv kernels HWIO -> OIHW, biases and the
+    softmax temperature `corr_temp` as they are."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for name, val in sorted(node.items()):
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{name}.")
+            elif name == "kernel":
+                out[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(val, np.float32).transpose(3, 2, 0, 1)))
+            elif name in ("bias", "corr_temp"):
+                out[f"{prefix}{name}"] = torch.from_numpy(np.array(val, np.float32))
+            else:
+                raise ValueError(f"unknown FlowNetLite entry {prefix}{name}")
+
+    walk(params, "")
     return out

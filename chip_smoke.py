@@ -13,11 +13,14 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               comparison below is float32 against float32.
   2. build    `nvcc` compiles `avtubes_torch/csrc/*.cu` for sm_90a.
   3. kernels  each hand-written kernel against its plain PyTorch version on
-              the card, at the shapes the serving path gives it:
+              the card, at the shapes the main paths give it:
               K1 fused log-spectrogram (max |diff| <= 5e-4: the sums run in
               another order), K2 exact median mask (bit-equal to the plain
-              bisection and to torch.sort()[k]).  CUDA-event times of the
-              kernel, the plain version and one library call beside them.
+              bisection and to torch.sort()[k]), K3 correlation cost volume,
+              forward and both gradients (max |diff| <= 1e-5 on unit-scale
+              inputs against the plain version and its autograd).
+              CUDA-event times of the kernel, the plain version and, where
+              there is one, a library call beside them.
   4. serve    a seeded full-width AVENet localizer (two ResNet-18, 224x224
               frames, 257x431 spectrogram, float32) is exported, loaded by
               `ArtifactRunner` on the card, warmed, and answers concurrent
@@ -25,8 +28,16 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               through the HTTP server.  Served results are held against the
               same pipeline run with the plain versions; both kernels'
               launch counters must have risen during the served requests.
+  5. flow     the FlowNetLite pretrainer at full width (224x224 frames,
+              batch 20, 28x28x96 features, an 81-channel cost volume):
+              `avtubes_torch.cli.flow --train_flow --synthetic` takes a few
+              steps on the card (finite losses, K3's forward and backward
+              launch counters, a checkpoint that restores to the bit-same
+              flow), the same steps with the plain cost volume give the same
+              loss curve, and training on translating patterns recovers a
+              known shift.  Step time by CUDA events and K3's share of it.
 
-Then one `{"kernels": [...]}` line (per kernel: launches on the served
+Then one `{"kernels": [...]}` line (per kernel: launches on its main
 path, error against the plain version, measured times, and the least time
 the card could take), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`.
@@ -35,6 +46,7 @@ the card could take), the `nvidia-smi` name/power-limit line, and last
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import math
 import os
@@ -64,6 +76,7 @@ from avtubes_torch.evaluation.postprocess import IMG as MASK_SIZE
 from avtubes_torch.evaluation.postprocess import heatmap_to_mask_batch
 from avtubes_torch.models.avenet import AVENet
 from avtubes_torch.ops import _build
+from avtubes_torch.ops import correlation as k3
 from avtubes_torch.ops import median_select as k2
 from avtubes_torch.ops import stft as k1
 
@@ -77,6 +90,16 @@ N_CLIENTS = 8
 STFT_ATOL = 5e-4      # kernel vs plain: fp32 sums in another order, then a log
 HEATMAP_ATOL = 1e-4   # served (kernels) vs plain pipeline: K1's error through two ResNets
 MASK_FLIPS = 16       # per map: resize ulps right at the median threshold
+CORR_ATOL = 1e-5      # K3 vs plain, value and gradients, unit-scale inputs: fp32 sums in another order
+FLOW_LOSS_RTOL = 1e-3  # loss curve, kernel vs plain cost volume: sum order, then Adam steps on it
+
+# the flow pretrainer's recipe shapes
+FLOW_BATCH = 20
+FLOW_STEPS = 6            # CLI steps: two of each kind of synthetic pair
+FLOW_FEAT = (28, 28, 96)  # FlowNetLite features of a 224x224 frame
+FLOW_MAX_DISP = 4
+CLIP_PAIRS = 300          # frame pairs of one batch of 20 real clips of 16 frames
+SHIFT_MAX_STEPS = 400     # shift recovery: the JAX package's test takes 200 at 64x64
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -263,8 +286,132 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         "library_call": "torch.kthvalue (threshold only)",
         "sort_ms": cuda_ms(lambda: torch.sort(flat, dim=1)),
     }
+    results["correlation"] = check_correlation(dev)
     emit("kernels", **results)
     return results
+
+
+def correlation_errors(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
+                       stride: int) -> dict[str, float]:
+    """max |kernel - plain| of the volume and of both gradients under one
+    random cotangent; the kernels through autograd, as the trainer runs them."""
+    f1 = f1.detach().requires_grad_()
+    f2 = f2.detach().requires_grad_()
+    out = k3.correlation_cost_volume(f1, f2, max_disp, stride)
+    gen = torch.Generator(device=f1.device).manual_seed(SEED)
+    cot = torch.randn(out.shape, generator=gen, device=f1.device)
+    gf1, gf2 = torch.autograd.grad(out, (f1, f2), cot)
+    torch.cuda.synchronize()
+    ref = k3.correlation_plain(f1, f2, max_disp, stride)
+    rf1, rf2 = torch.autograd.grad(ref, (f1, f2), cot)
+    require(out.shape == ref.shape, (out.shape, ref.shape))
+    for t in (out, gf1, gf2):
+        require(torch.isfinite(t).all(), "K3: non-finite output")
+    return {"forward": float((out - ref).detach().abs().max()),
+            "grad_f1": float((gf1 - rf1).abs().max()),
+            "grad_f2": float((gf2 - rf2).abs().max())}
+
+
+def check_correlation(dev: torch.device) -> dict:
+    """K3 against `correlation_plain` and its autograd, then its times at
+    the pretrainer's shape."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def maps(*shape):
+        return (torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev))
+
+    h, w, c = FLOW_FEAT
+    cases = {
+        "pretrain_step": (maps(FLOW_BATCH, h, w, c), FLOW_MAX_DISP, 1),
+        "clip_pairs_300": (maps(CLIP_PAIRS, h, w, c), FLOW_MAX_DISP, 1),
+        "small": (maps(2, 8, 8, 16), 2, 1),
+        # C = 10 (no 16-byte loads), D = 25, a stride that divides nothing
+        "ragged_stride2": (maps(3, 7, 9, 10), 4, 2),
+        "stride_not_dividing_max_disp": (maps(2, 9, 7, 12), 4, 3),
+        "window_larger_than_map": (maps(2, 5, 6, 8), 7, 1),
+        # 30 columns in four segments of 8: the last one is ragged
+        "ragged_last_segment": (maps(2, 5, 30, c), FLOW_MAX_DISP, 1),
+        # a 17x17 window at C = 96: only one-column tiles fit (116 KB each)
+        "one_column_tiles": (maps(1, 6, 6, c), 8, 1),
+        "max_disp_zero": (maps(2, 6, 5, 20), 0, 1),
+        # a 41x41 window: no tile fits shared memory, the direct kernels run
+        "window_exceeds_shared_memory": (maps(1, 6, 6, 64), 20, 1),
+    }
+    zf1, _ = maps(2, 8, 8, 16)
+    cases["all_zero_f2"] = ((zf1, torch.zeros_like(zf1)), 2, 1)
+    # contiguous but 4 bytes off a 16-byte boundary: the scalar-load variant
+    off1 = torch.randn(4 * 10 * 12 * 32 + 1, generator=gen, device=dev)[1:].view(4, 10, 12, 32)
+    off2 = torch.randn(4 * 10 * 12 * 32 + 1, generator=gen, device=dev)[1:].view(4, 10, 12, 32)
+    require(off1.data_ptr() % 16 != 0 and off1.is_contiguous(), "case is not unaligned")
+    cases["unaligned_pointers"] = ((off1, off2), 3, 1)
+    errs = {}
+    for name, ((f1, f2), md, st) in cases.items():
+        errs[name] = correlation_errors(f1, f2, md, st)
+        require(max(errs[name].values()) <= CORR_ATOL, f"K3 {name}: {errs[name]}")
+    zero_out = k3.correlation_cost_volume(*cases["all_zero_f2"][0], 2, 1)
+    require(float(zero_out.abs().max()) == 0.0, "K3: all-zero f2 gave a non-zero volume")
+
+    # only the input that needs a gradient gets a backward launch
+    (f1, f2), md, st = cases["pretrain_step"]
+    before = k3.correlation_backward_cuda.launches
+    only1 = f1.detach().requires_grad_()
+    k3.correlation_cost_volume(only1, f2, md, st).sum().backward()
+    require(k3.correlation_backward_cuda.launches == before + 1,
+            "K3: a gradient nobody needs was computed")
+    # a CUDA tensor never takes the plain version silently
+    for bad in (f1.double(), f1.permute(0, 3, 1, 2)):
+        try:
+            k3.correlation_forward_cuda(bad, bad, md, st)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("K3: the wrapper took a tensor the kernel does not take")
+
+    b, d = FLOW_BATCH, (2 * FLOW_MAX_DISP + 1) ** 2
+    cot = torch.randn((b, h, w, d), generator=gen, device=dev)
+    fwd_bound, fwd_by = bound(4 * b * h * w * (2 * c + d), 2.0 * b * h * w * c * d)
+    bwd_bound, bwd_by = bound(4 * b * h * w * (4 * c + d), 4.0 * b * h * w * c * d)
+    p1 = f1.detach().requires_grad_()
+    p2 = f2.detach().requires_grad_()
+    plain_out = k3.correlation_plain(p1, p2, md, st)
+    # what FlowNetLite hands over: (B, C, H, W) feature maps seen channels last
+    n1 = f1.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    n2 = f2.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    require(not n1.is_contiguous(), "layout case is already channels last")
+
+    def backward_kernels():
+        k3.correlation_backward_cuda(cot, f2, "f1", md, st)
+        k3.correlation_backward_cuda(cot, f1, "f2", md, st)
+
+    big1, big2 = cases["clip_pairs_300"][0]
+    return {
+        "name": "correlation_forward_cuda", "route": "cuda",
+        "source": "avtubes_torch/csrc/correlation.cu",
+        "replaces": "avtubes/ops/correlation.py:65",
+        "shape": [b, h, w, c], "max_disp": md, "stride": st,
+        "max_abs_err": max(max(e.values()) for e in errs.values()), "errs": errs,
+        "ms": cuda_ms(lambda: k3.correlation_forward_cuda(f1, f2, md, st)),
+        "plain_ms": cuda_ms(lambda: k3.correlation_plain(f1, f2, md, st)),
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+        "algorithm_bound_ms": fwd_bound,
+        "algorithm": "one fp32 dot product per output from shared-memory tiles",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a cost volume",
+        # both gradients: two launches of the backward kernel
+        "backward_name": "correlation_backward_cuda",
+        "backward_replaces": "avtubes/ops/correlation.py:105",
+        "backward_max_abs_err": max(max(e["grad_f1"], e["grad_f2"]) for e in errs.values()),
+        "backward_ms": cuda_ms(backward_kernels),
+        "backward_plain_ms": cuda_ms(lambda: torch.autograd.grad(
+            plain_out, (p1, p2), cot, retain_graph=True)),
+        "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
+        # the copy to channels last that (B, C, H, W) features cost, with the kernel
+        "ms_from_channels_first": cuda_ms(
+            lambda: k3.correlation_cost_volume(n1, n2, md, st)),
+        "ms_batch300": cuda_ms(lambda: k3.correlation_forward_cuda(big1, big2, md, st)),
+        "bound_ms_batch300": bound(4 * CLIP_PAIRS * h * w * (2 * c + d),
+                                   2.0 * CLIP_PAIRS * h * w * c * d)[0],
+    }
 
 
 def make_requests(cfg: SpectrogramConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -484,12 +631,165 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
     return launches
 
 
+def read_losses(summaries_dir: str) -> list[float]:
+    """The per-step losses that `run_pretrain` logged, in order."""
+    with open(os.path.join(summaries_dir, "flownet.metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    return [r["loss"] for r in records if "loss" in r]
+
+
+def shift_recovery(dev: torch.device) -> dict:
+    """The bar of the JAX package's `test_pretraining_recovers_known_shift`
+    at full width: from a fresh state at lr 1e-3, steps on translating
+    patterns until the photometric loss is under 0.8x the first step's and
+    the mean flow on a probe shifted by (8, -8) points along the true flow
+    (cos > 0.95) with more than half its magnitude."""
+    from avtubes_torch.train.flow_pretrain import (
+        create_flow_state,
+        flow_pretrain_step,
+        smooth_pattern,
+    )
+
+    state = create_flow_state(torch.Generator().manual_seed(SEED), learning_rate=1e-3,
+                              device=dev)
+    rng = np.random.RandomState(SEED)
+    # the patterns are made once on the host and re-drawn with fresh shifts
+    pool = torch.from_numpy(np.stack(
+        [smooth_pattern(rng, IMAGE_SIZE) for _ in range(3 * FLOW_BATCH)])).to(dev)
+    probe1 = torch.from_numpy(np.stack(
+        [smooth_pattern(np.random.RandomState(99 + i), IMAGE_SIZE) for i in range(4)])).to(dev)
+    shift = (8, -8)   # content moves +8 rows, -8 columns => backward flow (dx, dy) = (+8, -8)
+    probe2 = torch.roll(probe1, shift, dims=(1, 2))
+    expected = np.array([-shift[1], -shift[0]], np.float64)
+
+    first = photo = None
+    reached: dict = {}
+    for step in range(1, SHIFT_MAX_STEPS + 1):
+        idx = rng.choice(len(pool), FLOW_BATCH, replace=False)
+        shifts = rng.randint(-8, 9, size=(FLOW_BATCH, 2))
+        im1 = pool[torch.from_numpy(idx).to(dev)]
+        im2 = torch.stack([torch.roll(im1[i], (int(shifts[i][0]), int(shifts[i][1])),
+                                      dims=(0, 1)) for i in range(FLOW_BATCH)])
+        metrics = flow_pretrain_step(state, im1, im2)
+        if first is None:
+            first = float(metrics["photometric"])
+        if step % 50:
+            continue
+        photo = float(metrics["photometric"])
+        with torch.no_grad():
+            flow = state.model(probe1, probe2).mean(dim=(0, 1, 2)).double().cpu().numpy()
+        cos = float(flow @ expected / (np.linalg.norm(flow) * np.linalg.norm(expected)))
+        reached = {"steps": step, "first_photometric": first, "photometric": photo,
+                   "mean_flow": flow.tolist(), "expected_flow": expected.tolist(),
+                   "cos": cos,
+                   "magnitude_ratio": float(np.linalg.norm(flow) / np.linalg.norm(expected))}
+        if photo < 0.8 * first and cos > 0.95 and reached["magnitude_ratio"] > 0.5:
+            return reached
+    raise AssertionError(f"shift not recovered in {SHIFT_MAX_STEPS} steps; reached {reached}")
+
+
+def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]:
+    """Returns K3's forward and backward launches on the pretrainer's steps."""
+    from avtubes_torch.cli import flow as flow_cli
+    from avtubes_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
+    from avtubes_torch.core.config import ExperimentConfig
+    from avtubes_torch.train.flow_pretrain import (
+        create_flow_state,
+        epe,
+        flow_pretrain_step,
+        run_pretrain,
+        translating_pairs,
+        warped_pairs,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--synthetic", "--image_size", str(IMAGE_SIZE), "--batch_size",
+                str(FLOW_BATCH), "--epochs", "1", "--steps", str(FLOW_STEPS),
+                "--seed", str(SEED)]
+        # ---- (a) the main path: the CLI takes FLOW_STEPS steps on the card
+        dir_kernel = os.path.join(tmp, "kernel")
+        k3.correlation_forward_cuda.launches = 0
+        k3.correlation_backward_cuda.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
+            final = flow_cli.main(["--train_flow", *args, "--summaries_dir", dir_kernel])
+        cli_s = time.monotonic() - t0
+        launches = {"forward": k3.correlation_forward_cuda.launches,
+                    "backward": k3.correlation_backward_cuda.launches}
+        losses = read_losses(dir_kernel)
+        require(len(losses) == FLOW_STEPS and np.isfinite(losses).all(), losses)
+        require(all(np.isfinite(v) for v in final.values()), final)
+        # one forward per step and one per held-out probe (two kinds); two
+        # backward launches per step, one per gradient
+        require(launches == {"forward": FLOW_STEPS + 2, "backward": 2 * FLOW_STEPS}, launches)
+        ckpt = latest_checkpoint(dir_kernel, "flownet")
+        require(ckpt is not None and ckpt.name == "flownet_ep0" and ckpt.is_file(), ckpt)
+        # restored into a differently seeded net, the weights give the
+        # bit-same flow: the probe's EPE is the float the trainer logged
+        restored = create_flow_state(torch.Generator().manual_seed(SEED + 5), device=dev)
+        restored, epoch = restore_checkpoint(ckpt, restored)
+        require(epoch == 0 and restored.step == FLOW_STEPS, (epoch, restored.step))
+        p1, p2, gt = warped_pairs(np.random.RandomState(1234), 4, IMAGE_SIZE, kind="affine")
+        with torch.no_grad():
+            pred = restored.model(torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev))
+        require(pred.shape == (4, IMAGE_SIZE, IMAGE_SIZE, 2), pred.shape)
+        require(epe(pred.cpu().numpy(), gt) == final["epe_affine"],
+                (epe(pred.cpu().numpy(), gt), final["epe_affine"]))
+
+        # ---- (b) the same steps from the same init with the plain cost volume
+        dir_plain = os.path.join(tmp, "plain")
+        cfg = ExperimentConfig.from_args([*args, "--summaries_dir", dir_plain])
+        before_plain = k3.correlation_forward_cuda.launches
+        with contextlib.redirect_stdout(sys.stderr):
+            run_pretrain(cfg, steps_cap=FLOW_STEPS, impl="plain")
+        require(k3.correlation_forward_cuda.launches == before_plain,
+                "impl='plain' launched a kernel")
+        plain_losses = read_losses(dir_plain)
+        loss_rel = float(np.max(np.abs(np.array(losses) - plain_losses)
+                                / np.abs(plain_losses)))
+        require(loss_rel <= FLOW_LOSS_RTOL, (losses, plain_losses))
+
+    # ---- (c) training recovers a known shift
+    recovered = shift_recovery(dev)
+
+    # ---- step time at the recipe batch, and K3's share of it
+    im1, im2, _ = translating_pairs(np.random.RandomState(SEED), FLOW_BATCH, IMAGE_SIZE)
+    im1, im2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
+    state = create_flow_state(torch.Generator().manual_seed(SEED), device=dev)
+    plain_state = create_flow_state(torch.Generator().manual_seed(SEED), device=dev,
+                                    impl="plain")
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: state.model(im1, im2), iters=10)
+    step_ms = cuda_ms(lambda: flow_pretrain_step(state, im1, im2), iters=10)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(10):
+        flow_pretrain_step(state, im1, im2)
+    torch.cuda.synchronize()
+    step_host_ms = (time.monotonic() - t0) * 1e3 / 10
+    plain_step_ms = cuda_ms(lambda: flow_pretrain_step(plain_state, im1, im2), iters=10)
+    k3_ms = k3_times["ms_from_channels_first"] + k3_times["backward_ms"]
+    emit("flow", card=report, image_size=IMAGE_SIZE, batch=FLOW_BATCH,
+         cli_steps=FLOW_STEPS, cli_seconds_host_clock=round(cli_s, 2),
+         launches=launches, losses=losses, plain_losses=plain_losses,
+         loss_max_rel_diff_vs_plain=loss_rel, final=final, shift_recovery=recovered,
+         flownet_forward_ms=forward_ms, step_ms=step_ms,
+         step_ms_host_clock=step_host_ms, step_ms_plain_cost_volume=plain_step_ms,
+         k3_forward_with_layout_copy_ms=k3_times["ms_from_channels_first"],
+         k3_backward_ms=k3_times["backward_ms"], k3_share_of_step=k3_ms / step_ms,
+         peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    return launches
+
+
 def main() -> int:
     t_start = time.monotonic()
     dev, report = phase_device()
     phase_build()
     results = phase_kernels(dev)
     launches = phase_serve(dev, report)
+    flow_launches = phase_flow(dev, report, results["correlation"])
+    launches["correlation"] = flow_launches["forward"]
+    results["correlation"]["backward_launches"] = flow_launches["backward"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "algorithm_bound_ms", "library_ms", "library_call")
@@ -497,7 +797,9 @@ def main() -> int:
     for key, res in results.items():
         # the kernel's time goes under both names: `ms` and `kernel_ms`
         res = {**res, "launches": launches[key], "kernel_ms": res["ms"]}
-        kernels.append({k: res[k] for k in keys})
+        # K3 carries its backward kernel's numbers under names of their own
+        extra = [k for k in res if k.startswith("backward_")]
+        kernels.append({k: res[k] for k in (*keys, *extra)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(report, flush=True)
     sys.stderr.write(f"chip_smoke: all phases passed in "

@@ -22,10 +22,15 @@ def test_expected_modules_exist():
                  "models.hardway", "models.avenet", "core.convert",
                  "ops.median_select", "evaluation.postprocess", "data.transforms",
                  "data.audio", "core.export", "core.serving", "cli.serve",
-                 "ops._build"):
+                 "ops._build", "ops.correlation", "ops.warp", "models.flownet",
+                 "train.state", "train.flow_pretrain", "core.checkpoint",
+                 "core.config", "utils.logging", "cli.flow"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "median_select.cu", "stft.cu"]
+        "correlation.cu", "median_select.cu", "stft.cu"]
+    from avtubes_torch.ops import _build
+
+    assert sorted(_build.KERNELS) == ["correlation", "median_select", "stft"]
 
 
 def test_importing_every_module_pulls_in_no_jax_and_builds_nothing():
@@ -55,6 +60,7 @@ def test_light_module_import_stays_light():
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
                                   ROOT / "scripts" / "profile_torch_serving.py",
+                                  ROOT / "scripts" / "profile_torch_flow_step.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
@@ -81,6 +87,51 @@ def test_serving_path_calls_no_library_transform_or_selection():
                 assert node.attr not in banned, f"{path}: torch.{node.attr}"
                 if node.attr == "sort":
                     assert path.name == "median_select.py", f"{path}: torch.sort"
+
+
+def test_cost_volume_is_no_library_contraction():
+    """Neither the correlation module nor FlowNetLite computes the volume or
+    its gradients with a library contraction: the only calls that touch the
+    maps are elementwise ones (the plain version) and the kernels' wrappers."""
+    banned = {"matmul", "bmm", "einsum", "unfold", "conv2d", "compile", "tensordot",
+              "baddbmm", "mm"}
+    tree = ast.parse((PORT / "ops" / "correlation.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in banned, f"ops/correlation.py: .{node.attr}"
+    tree = ast.parse((PORT / "models" / "flownet.py").read_text())
+    called = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert not called & (banned - {"conv2d"}), called & banned
+
+
+def test_flow_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    from avtubes_torch.core.config import ExperimentConfig
+    from avtubes_torch.ops.correlation import (
+        correlation_backward_cuda,
+        correlation_forward_cuda,
+    )
+    from avtubes_torch.train.flow_pretrain import create_flow_state, run_pretrain
+
+    assert ExperimentConfig.from_args([]).train.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_flow_state(torch.Generator().manual_seed(0))
+    cfg = ExperimentConfig.from_args(["--synthetic", "--image_size", "32",
+                                      "--summaries_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pretrain(cfg, steps_cap=1)
+    assert not list(tmp_path.iterdir())          # it raised before it wrote anything
+    with pytest.raises(ValueError):
+        correlation_forward_cuda(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 8))
+    with pytest.raises(ValueError):
+        correlation_backward_cuda(torch.zeros(1, 4, 4, 81), torch.zeros(1, 4, 4, 8), "f1")
+    out = subprocess.run(
+        [sys.executable, "-m", "avtubes_torch.cli.flow", "--train_flow", "--synthetic",
+         "--image_size", "32", "--steps", "1", "--summaries_dir", str(tmp_path)],
+        cwd=ROOT, text=True, capture_output=True, timeout=300)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert "final:" not in out.stdout
 
 
 def test_default_device_raises_without_a_card(tmp_path):
