@@ -3,23 +3,33 @@
 The heatmap postprocess binarizes each upsampled 224x224 map at its median
 pixel — the value at sorted index H*W/2.  Only the k-th smallest VALUE is
 needed, and for non-negative IEEE-754 floats the int32 view of the bit
-pattern orders like the floats, so 31 steps of binary search over the bit
-space, each a compare-and-count pass, find it exactly: the search converges
-to the smallest pattern m with count(x <= m) >= k+1, which is the k-th
-smallest element, bit-identical to `sort(x)[k]`, ties and all.
+pattern orders like the floats, so the search can run on integers, where
+counting has no rounding: the answer is bit-identical to `sort(x)[k]`, ties
+and all.  Two searches over the bit space are written here:
+
+  * bisection (`kth_value_bits`, the plain version `median_mask_plain`): 31
+    compare-and-count steps converge to the smallest pattern m with
+    count(x <= m) >= k+1 — what the TPU kernel does;
+  * radix select (`kth_value_radix`): the 31 value bits as digits of
+    11 + 10 + 10, most significant first; per digit a histogram of the
+    elements that still match the prefix, a cumulative sum, the bin that
+    holds rank k, and k reduced by the count below it — what the CUDA kernel
+    does, written out on tensors for the tests.
 
 Replaces the TPU kernel `_median_mask_kernel` of
 `avtubes/ops/median_select.py` (launched by `median_mask_pallas`).  The
 kernel is `csrc/median_select.cu`, written by hand for sm_90a and bound
-through `ctypes`: one block per map, the map staged in shared memory.  On
-paper it is bound by bytes (one read, one write of the map); in practice by
-latency and occupancy — 31 serial block-wide reductions, and a serving
-batch of 8 maps uses 8 of the card's 132 SMs.  See the note at the head of
-`csrc/median_select.cu`.
+through `ctypes`.  On paper it is bound by bytes (one read, one write of the
+map); at a serving batch those take about a microsecond, so what counts is
+how many SMs work and how many grid-wide steps are serial.  A map is split
+over a cluster of 8 blocks that keep it in registers (read from device
+memory once), and the three digit passes each cost one cluster barrier, the
+blocks' histograms summed through distributed shared memory.  See the note
+at the head of `csrc/median_select.cu`.
 
-Inputs must be non-negative finite floats (any magnitude: the search bound
-is the largest finite f32).  NaN and negative values are outside the
-contract; nothing here clamps or checks them, the caller guarantees it.
+Inputs must be non-negative finite floats (any magnitude up to the largest
+finite f32).  NaN and negative values are outside the contract; nothing
+here clamps or checks them, the caller guarantees it.
 
 `median_mask` takes the plain version only for a tensor that lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises.
@@ -36,6 +46,11 @@ _MAX_BITS = 0x7F7FFFFF  # bit pattern of the largest finite f32: the search
 #                          [0, 1] (an un-normalized map must get the exact
 #                          answer, not a silent clamp at 1.0)
 _ITERS = 31             # ceil(log2(_MAX_BITS + 1)) = 31 exactly
+#: the radix select's digits as (shift, bits), most significant first; the
+#: same split as `digit_shift` / `digit_bits` of csrc/median_select.cu
+RADIX_DIGITS = ((20, 11), (10, 10), (0, 10))
+#: names of the kernel's variants, by the code `avt_median_mask_variant` gives
+VARIANTS = ("streaming_scalar", "streaming_vec4", "resident_scalar", "resident_vec4")
 
 
 def kth_value_bits(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -52,6 +67,28 @@ def kth_value_bits(x: torch.Tensor, k: int) -> torch.Tensor:
         take_lo = cnt >= k + 1
         lo, hi = torch.where(take_lo, lo, mid + 1), torch.where(take_lo, mid, hi)
     return lo.view(torch.float32)
+
+
+def kth_value_radix(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N) non-negative f32 -> (B,) exact k-th smallest value per row, by
+    the kernel's radix select written out on tensors (tests only)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    b = x.shape[0]
+    prefix = torch.zeros((b,), dtype=torch.int64, device=x.device)
+    rank_left = torch.full((b,), k, dtype=torch.int64, device=x.device)
+    matching = bits >= 0                      # pass 0: every value in the contract
+    for shift, nbits in RADIX_DIGITS:
+        digit = (bits >> shift) & ((1 << nbits) - 1)
+        hist = torch.zeros((b, 1 << nbits), dtype=torch.int64, device=x.device)
+        hist.scatter_add_(1, digit, matching.to(torch.int64))
+        upto = hist.cumsum(dim=1)
+        # the first bin whose cumulative count exceeds the rank holds it
+        chosen = (upto <= rank_left[:, None]).sum(dim=1).clamp_(max=(1 << nbits) - 1)
+        below = (upto - hist).gather(1, chosen[:, None])[:, 0]
+        rank_left = rank_left - below
+        prefix = (prefix << nbits) | chosen
+        matching = matching & (digit == chosen[:, None])
+    return prefix.to(torch.int32).view(torch.float32)
 
 
 def median_mask_plain(pred: torch.Tensor, k: int) -> torch.Tensor:
@@ -73,14 +110,25 @@ def median_mask_sort(pred: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _bind():
+    """The kernel's library with both entry points declared."""
     from avtubes_torch.ops._build import load_library
 
-    fn = load_library("median_select").avt_median_mask
-    if fn.argtypes is None:
+    lib = load_library("median_select")
+    if lib.avt_median_mask.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.avt_median_mask.argtypes = [p, p, i, i, i, i, p]
+        lib.avt_median_mask.restype = ctypes.c_int
+        lib.avt_median_mask_variant.argtypes = [p, p, i]
+        lib.avt_median_mask_variant.restype = ctypes.c_int
+    return lib
+
+
+def median_mask_variant(pred: torch.Tensor, out: torch.Tensor) -> str:
+    """Which variant of the kernel maps of this size at these addresses take
+    (one of `VARIANTS`): decided from the size and the alignment alone."""
+    code = _bind().avt_median_mask_variant(pred.data_ptr(), out.data_ptr(),
+                                           pred.shape[1] * pred.shape[2])
+    return VARIANTS[code]
 
 
 def median_mask_cuda(pred: torch.Tensor, k: int) -> torch.Tensor:
@@ -102,12 +150,14 @@ def median_mask_cuda(pred: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"k={k} outside [0, {n})")
     if n >= 2 ** 31:
         raise ValueError(f"map of {n} elements exceeds the kernel's int32 index")
+    if b >= 2 ** 28:
+        raise ValueError(f"batch {b} exceeds the kernel's grid (8 blocks a map)")
     out = torch.empty_like(pred)
     if b == 0:
         return out
-    fn = _bind()
-    err = fn(pred.data_ptr(), out.data_ptr(), b, n, int(k), pred.device.index,
-             torch.cuda.current_stream(pred.device).cuda_stream)
+    err = _bind().avt_median_mask(
+        pred.data_ptr(), out.data_ptr(), b, n, int(k), pred.device.index,
+        torch.cuda.current_stream(pred.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"avt_median_mask launch failed: CUDA error {err}")
     median_mask_cuda.launches += 1

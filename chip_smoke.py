@@ -14,13 +14,16 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
   2. build    `nvcc` compiles `avtubes_torch/csrc/*.cu` for sm_90a.
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the shapes the main paths give it:
-              K1 fused log-spectrogram (max |diff| <= 5e-4: the sums run in
-              another order), K2 exact median mask (bit-equal to the plain
-              bisection and to torch.sort()[k]), K3 correlation cost volume,
-              forward and both gradients (max |diff| <= 1e-5 on unit-scale
-              inputs against the plain version and its autograd).
-              CUDA-event times of the kernel, the plain version and, where
-              there is one, a library call beside them.
+              K1 fused log-spectrogram, the FFT kernel and the dense one (max
+              |diff| <= 5e-4: the sums run in another order), K2 exact median
+              mask, every variant (bit-equal to the plain bisection and to
+              torch.sort()[k]), K3 correlation cost volume, forward and both
+              gradients (max |diff| <= 1e-5 on unit-scale inputs against the
+              plain version and its autograd).  CUDA-event times of the
+              kernel, the plain version and, where there is one, a library
+              call beside them: `ms` over back-to-back calls as a caller
+              makes them (the host's launch rate is in it), `kernel_ms` over
+              the same calls queued behind a sleeping stream (it is not).
   4. serve    a seeded full-width AVENet localizer (two ResNet-18, 224x224
               frames, 257x431 spectrogram, float32) is exported, loaded by
               `ArtifactRunner` on the card, warmed, and answers concurrent
@@ -133,6 +136,58 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: how `kernel_ms`, `library_kernel_ms` and `graph_ms` are taken; printed with every kernel
+KERNEL_MS_HOW = (
+    "kernel_ms / library_kernel_ms: CUDA events around 50 calls enqueued while the "
+    "stream is held busy by torch.cuda._sleep, least of 3 rounds, so the host's "
+    "launch rate is not in them; graph_ms: 20 calls captured in one CUDA graph, "
+    "10 replays; ms / library_ms: CUDA events around 20 back-to-back calls as the "
+    "caller makes them")
+
+
+def queued_ms(fn, iters: int = 50, rounds: int = 3) -> float:
+    """Milliseconds of `fn` on the device alone: the calls are enqueued
+    behind a spinning kernel (about 10 ms, longer than the host needs to
+    enqueue them), so the stream never waits for the host between them; the
+    least of `rounds` means."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = math.inf
+    for _ in range(rounds):
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Milliseconds of `fn` when `launches` calls are captured in one CUDA
+    graph and replayed: the wrappers launch on PyTorch's current stream, so
+    they capture like any PyTorch kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
     """Least milliseconds the card could take, and which limit sets it."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -175,30 +230,74 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     results: dict[str, dict] = {}
 
     # ---- K1: fused log-spectrogram at the serving shape (8, 220500)
+    require(k1.algorithm_for(cfg) == "fft", "the serving shape must take the FFT kernel")
     wav = np.clip(rng.randn(MAX_BATCH, cfg.num_samples) * 0.2, -1, 1).astype(np.float32)
     x_f32 = torch.from_numpy(wav).to(dev)
     x_i16 = torch.from_numpy(quantize_int16_waveform(wav)).to(dev)
     x_zero = torch.zeros_like(x_f32)
+    # full-scale sines, at a bin's centre and half-way between two bins
+    seconds = np.arange(cfg.num_samples, dtype=np.float64) / cfg.samplerate
+    bin_hz = cfg.samplerate / cfg.nperseg
+    sines = np.stack([np.sin(2 * np.pi * f * bin_hz * seconds)
+                      for f in (40.0, 40.5, 3.0, 200.5, 255.0, 0.5, 128.0, 17.25)])
+    # detrend precision: a large offset under a small signal
+    dc = 0.9 + 1e-3 * rng.randn(MAX_BATCH, cfg.num_samples)
+    k1_cases = {
+        "float32": x_f32, "int16": x_i16, "zero": x_zero,
+        "sines_on_and_between_bins": torch.from_numpy(sines.astype(np.float32)).to(dev),
+        "dc_offset_0.9_noise_1e-3": torch.from_numpy(dc.astype(np.float32)).to(dev),
+        # grids that do not fill the card
+        "batch_1": x_f32[:1].contiguous(), "batch_3": x_f32[:3].contiguous(),
+    }
     errs = {}
-    for name, x in (("float32", x_f32), ("int16", x_i16), ("zero", x_zero)):
-        got = k1.log_spectrogram_cuda(x, cfg)
+
+    def k1_check(name: str, x: torch.Tensor, c: SpectrogramConfig, algorithm: str) -> None:
+        require(k1.algorithm_for(c) == algorithm, f"K1 {name}: not the {algorithm} kernel")
+        got = k1.log_spectrogram_cuda(x, c)
         torch.cuda.synchronize()
-        want = k1.log_spectrogram_plain(x, cfg)
-        require(got.shape == want.shape == (MAX_BATCH, *cfg.shape), got.shape)
+        want = k1.log_spectrogram_plain(x, c)
+        require(got.shape == want.shape == (x.shape[0], *c.shape), got.shape)
         require(torch.isfinite(got).all(), f"K1 {name}: non-finite output")
         errs[name] = float((got - want).abs().max())
         require(errs[name] <= STFT_ATOL, f"K1 {name}: max_abs_err {errs[name]}")
+
+    for name, x in k1_cases.items():
+        k1_check(name, x, cfg, "fft")
     zero_out = k1.log_spectrogram_cuda(x_zero, cfg)
     floor = math.log(cfg.log_offset) / cfg.normalize_std
     require(float(zero_out.min()) == float(zero_out.max()), "K1 zero clip not constant")
     require(abs(float(zero_out[0, 0, 0]) - floor) <= 1e-6, float(zero_out[0, 0, 0]))
+    # the other block size of the FFT kernel at the serving shape
+    other_tile = 48 - k1.FFT_TILE[cfg.nperseg]          # 16 <-> 32
+    got = k1.log_spectrogram_cuda(x_f32, cfg, frames_per_block=other_tile)
+    errs[f"float32_{other_tile}_frames_a_block"] = float(
+        (got - k1.log_spectrogram_plain(x_f32, cfg)).abs().max())
+    require(max(errs.values()) <= STFT_ATOL, errs)
+    # the other frame lengths the FFT kernel takes (T and hop change with them)
+    for nperseg in k1.FFT_NPERSEG:
+        if nperseg == cfg.nperseg:
+            continue
+        other = SpectrogramConfig(nperseg=nperseg)
+        x_other = torch.from_numpy(np.clip(
+            rng.randn(3, other.num_samples) * 0.2, -1, 1).astype(np.float32)).to(dev)
+        k1_check(f"nperseg_{nperseg}", x_other, other, "fft")
+        k1_check(f"nperseg_{nperseg}_int16", torch.from_numpy(
+            quantize_int16_waveform(x_other.cpu().numpy())).to(dev), other, "fft")
     # a geometry where nothing is a multiple of a tile: ragged nperseg, hop, T, F
+    # (not a power of two: the dense kernel)
     odd = SpectrogramConfig(samplerate=16000, seconds=2, nperseg=400, noverlap=150)
     x_odd = torch.from_numpy(
         np.clip(rng.randn(3, odd.num_samples) * 0.2, -1, 1).astype(np.float32)).to(dev)
-    errs["odd_geometry"] = float((k1.log_spectrogram_cuda(x_odd, odd)
-                                  - k1.log_spectrogram_plain(x_odd, odd)).abs().max())
-    require(errs["odd_geometry"] <= STFT_ATOL, errs)
+    k1_check("odd_geometry_dense", x_odd, odd, "dense")
+    k1_check("odd_geometry_dense_int16", torch.from_numpy(
+        quantize_int16_waveform(x_odd.cpu().numpy())).to(dev), odd, "dense")
+    # a CUDA tensor never takes the plain version silently
+    for bad in (x_f32.double(), x_f32[:, : cfg.num_samples // 2].contiguous(), x_f32.t()):
+        try:
+            k1.log_spectrogram_cuda(bad, cfg)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("K1: the wrapper took a tensor the kernel does not take")
 
     window = torch.tensor(tukey_periodic(cfg.nperseg, cfg.tukey_alpha),
                           dtype=torch.float32, device=dev)
@@ -210,10 +309,15 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     k1_bytes = x_f32.element_size() * b * cfg.num_samples + 4 * b * f * t
     k1_ops = b * t * (2.5 * n * math.log2(n) + 8.0 * f)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    # What THIS kernel's algorithm needs (a dense real DFT: two n x F products
-    # per frame, and the cos/sin matrices read once): a floor for the design,
-    # not for the function, so it goes under a name of its own.
-    k1_dense_bound, _ = bound(k1_bytes + 4 * (2 * n * f + f), 4.0 * b * t * n * f)
+    # What the kernel that runs at this shape needs: the FFT kernel reads its
+    # table of window, twiddles and scale besides (once; it stays in cache) and
+    # does the function's operations, so its floor is the function's.
+    k1_algorithm_bound, _ = bound(k1_bytes + k1.fft_kernel_table(cfg).nbytes, k1_ops)
+
+    def stft_library():
+        return torch.stft(x_f32, n_fft=cfg.nperseg, hop_length=cfg.hop, window=window,
+                          center=False, onesided=True, return_complex=True)
+
     results["stft"] = {
         "name": "log_spectrogram_cuda", "route": "cuda",
         "source": "avtubes_torch/csrc/stft.cu",
@@ -221,16 +325,22 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         "shape": [b, cfg.num_samples], "max_abs_err": max(errs.values()),
         "errs": errs,
         "ms": cuda_ms(lambda: k1.log_spectrogram_cuda(x_f32, cfg)),
+        "kernel_ms": queued_ms(lambda: k1.log_spectrogram_cuda(x_f32, cfg)),
+        "graph_ms": graph_ms(lambda: k1.log_spectrogram_cuda(x_f32, cfg)),
         "ms_int16": cuda_ms(lambda: k1.log_spectrogram_cuda(x_i16, cfg)),
+        "kernel_ms_int16": queued_ms(lambda: k1.log_spectrogram_cuda(x_i16, cfg)),
+        f"kernel_ms_{other_tile}_frames_a_block": queued_ms(
+            lambda: k1.log_spectrogram_cuda(x_f32, cfg, frames_per_block=other_tile)),
+        "kernel_ms_dense_odd_geometry": queued_ms(lambda: k1.log_spectrogram_cuda(x_odd, odd)),
         "plain_ms": cuda_ms(lambda: k1.log_spectrogram_plain(x_f32, cfg)),
         "bound_ms": k1_bound, "bound_by": k1_by,
-        "algorithm_bound_ms": k1_dense_bound,
-        "algorithm": "dense DFT, 4*B*T*nperseg*F fp32 FLOPs on the CUDA cores",
+        "algorithm_bound_ms": k1_algorithm_bound,
+        "algorithm": f"fft: one warp a frame, a packed {n // 2}-point complex radix-2 FFT "
+                     f"in registers and shuffles, {k1.FFT_TILE[n]} frames a block",
         # the one library call nearest to it: the windowed STFT alone, with
         # no detrend, PSD scale or log (so it does less work than the kernel)
-        "library_ms": cuda_ms(lambda: torch.stft(
-            x_f32, n_fft=cfg.nperseg, hop_length=cfg.hop, window=window,
-            center=False, onesided=True, return_complex=True)),
+        "library_ms": cuda_ms(stft_library),
+        "library_kernel_ms": queued_ms(stft_library),
         "library_call": "torch.stft (windowed DFT only: no detrend, scale or log)",
     }
 
@@ -240,49 +350,93 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     gen = np.random.default_rng(SEED)
     ties = gen.random((MAX_BATCH, npix), dtype=np.float32)
     ties[:, : npix // 2] = 0.25
+    # bit patterns in the lowest bins of every digit: exact zeros and denormals
+    tiny = gen.integers(0, 3000, (MAX_BATCH, npix)).astype(np.int32)
+    tiny[:, ::3] = 0
     cases = {
         "generic": gen.random((MAX_BATCH, npix), dtype=np.float32),
         "heavy_ties_at_k": ties,
         "all_equal": np.zeros((MAX_BATCH, npix), np.float32),
         "few_distinct": (np.round(gen.random((MAX_BATCH, npix)) * 8) / 8).astype(np.float32),
         "above_one": (gen.random((MAX_BATCH, npix)) * 3e38).astype(np.float32),
+        "denormals_and_zeros": tiny.view(np.float32),
     }
     shapes = {name: (MAX_BATCH, size, size) for name in cases}
+    cases["batch_1"] = gen.random((1, npix), dtype=np.float32)
+    shapes["batch_1"] = (1, size, size)
     cases["odd_size_unaligned"] = gen.random((3, 37 * 53), dtype=np.float32)
     shapes["odd_size_unaligned"] = (3, 37, 53)
     cases["larger_than_shared_memory"] = gen.random((2, 300 * 300), dtype=np.float32)
     shapes["larger_than_shared_memory"] = (2, 300, 300)
+    # too large for the registers of a cluster: each pass re-reads the map
+    cases["larger_than_the_registers"] = gen.random((2, 1024 * 1024), dtype=np.float32)
+    shapes["larger_than_the_registers"] = (2, 1024, 1024)
+    cases["larger_than_the_registers_odd"] = gen.random((2, 999 * 1001), dtype=np.float32)
+    shapes["larger_than_the_registers_odd"] = (2, 999, 1001)
+    # the variant each case must take, from its size and alignment alone
+    variants = {name: "resident_vec4" for name in cases}
+    variants.update(odd_size_unaligned="resident_scalar",
+                    larger_than_the_registers="streaming_vec4",
+                    larger_than_the_registers_odd="streaming_scalar")
+    # these also at the two ends of the range of k
+    both_ends = {"generic", "heavy_ties_at_k", "denormals_and_zeros", "odd_size_unaligned"}
     k2_err = 0.0
+    ranks = {}
     for name, arr in cases.items():
         pred = torch.from_numpy(arr).to(dev).reshape(shapes[name])
-        kk = pred.shape[1] * pred.shape[2] // 2
-        got = k2.median_mask_cuda(pred, kk)
-        torch.cuda.synchronize()
-        for other in (k2.median_mask_plain(pred, kk), k2.median_mask_sort(pred, kk)):
-            k2_err = max(k2_err, float((got - other).abs().max()))
-            require(torch.equal(got, other),
-                    f"K2 {name}: kernel differs from plain/sort in "
-                    f"{int((got != other).sum())} pixels")
+        n = pred.shape[1] * pred.shape[2]
+        ranks[name] = (n // 2, 0, n - 1) if name in both_ends else (n // 2,)
+        for kk in ranks[name]:
+            got = k2.median_mask_cuda(pred, kk)
+            torch.cuda.synchronize()
+            require(k2.median_mask_variant(pred, got) == variants[name],
+                    f"K2 {name}: took {k2.median_mask_variant(pred, got)}")
+            for other in (k2.median_mask_plain(pred, kk), k2.median_mask_sort(pred, kk)):
+                k2_err = max(k2_err, float((got - other).abs().max()))
+                require(torch.equal(got, other),
+                        f"K2 {name}, k={kk}: kernel differs from plain/sort in "
+                        f"{int((got != other).sum())} pixels")
+    # contiguous but 4 bytes off a 16-byte boundary: the scalar variant
+    off = torch.from_numpy(cases["generic"]).to(dev).reshape(-1)[1: 1 + 3 * npix]
+    off = off.view(3, size, size)
+    require(off.data_ptr() % 16 != 0 and off.is_contiguous(), "case is not unaligned")
+    got = k2.median_mask_cuda(off, npix // 2)
+    require(k2.median_mask_variant(off, got) == "resident_scalar", "K2 unaligned pointer")
+    require(torch.equal(got, k2.median_mask_sort(off, npix // 2)), "K2 unaligned pointer")
     pred = torch.from_numpy(cases["generic"]).to(dev).reshape(MAX_BATCH, size, size)
+    plateau = torch.from_numpy(cases["all_equal"]).to(dev).reshape(MAX_BATCH, size, size)
+    huge = torch.from_numpy(cases["larger_than_the_registers"]).to(dev).reshape(2, 1024, 1024)
     flat = pred.reshape(MAX_BATCH, -1)
     k_med = npix // 2
-    # ~2 integer operations (compare, add) per element and step
-    k2_bound, k2_by = bound(2 * 4 * MAX_BATCH * npix, 2.0 * 31 * MAX_BATCH * npix)
+    # What the function needs: each map read once and its mask written once;
+    # per element one compare for the mask and, for an exact selection by
+    # digits, ~2 integer operations (extract, count) in each of 3 passes —
+    # held against the fp32 rate, the integer rate being no higher.  Bytes
+    # bound it either way.
+    k2_bound, k2_by = bound(2 * 4 * MAX_BATCH * npix, 7.0 * MAX_BATCH * npix)
     results["median_select"] = {
         "name": "median_mask_cuda", "route": "cuda",
         "source": "avtubes_torch/csrc/median_select.cu",
         "replaces": "avtubes/ops/median_select.py:69",
         "shape": [MAX_BATCH, size, size], "max_abs_err": k2_err,  # bit-equal is required above
-        "cases": list(cases),
+        "cases": {name: {"variant": variants[name], "k": list(ranks[name])} for name in cases},
         "ms": cuda_ms(lambda: k2.median_mask_cuda(pred, k_med)),
+        "kernel_ms": queued_ms(lambda: k2.median_mask_cuda(pred, k_med)),
+        "graph_ms": graph_ms(lambda: k2.median_mask_cuda(pred, k_med)),
+        "ms_all_equal": cuda_ms(lambda: k2.median_mask_cuda(plateau, k_med)),
+        "kernel_ms_all_equal": queued_ms(lambda: k2.median_mask_cuda(plateau, k_med)),
+        "kernel_ms_2x1024x1024_streaming": queued_ms(
+            lambda: k2.median_mask_cuda(huge, 1024 * 512)),
         "plain_ms": cuda_ms(lambda: k2.median_mask_plain(pred, k_med)),
         "bound_ms": k2_bound, "bound_by": k2_by,
-        # the bisection is the function here (an exact order statistic), so
-        # the algorithm's floor is the function's
+        # an exact order statistic by digits is the function here, so the
+        # algorithm's floor is the function's
         "algorithm_bound_ms": k2_bound,
-        "algorithm": "31-step bit bisection, one block per map",
+        "algorithm": "radix select, 3 digit passes (11+10+10 bits), a cluster of 8 blocks "
+                     "a map, the map in registers",
         # the library's selection of the same threshold (1-based k)
         "library_ms": cuda_ms(lambda: torch.kthvalue(flat, k_med + 1, dim=1)),
+        "library_kernel_ms": queued_ms(lambda: torch.kthvalue(flat, k_med + 1, dim=1)),
         "library_call": "torch.kthvalue (threshold only)",
         "sort_ms": cuda_ms(lambda: torch.sort(flat, dim=1)),
     }
@@ -391,6 +545,8 @@ def check_correlation(dev: torch.device) -> dict:
         "shape": [b, h, w, c], "max_disp": md, "stride": st,
         "max_abs_err": max(max(e.values()) for e in errs.values()), "errs": errs,
         "ms": cuda_ms(lambda: k3.correlation_forward_cuda(f1, f2, md, st)),
+        "kernel_ms": queued_ms(lambda: k3.correlation_forward_cuda(f1, f2, md, st)),
+        "graph_ms": graph_ms(lambda: k3.correlation_forward_cuda(f1, f2, md, st)),
         "plain_ms": cuda_ms(lambda: k3.correlation_plain(f1, f2, md, st)),
         "bound_ms": fwd_bound, "bound_by": fwd_by,
         "algorithm_bound_ms": fwd_bound,
@@ -402,6 +558,7 @@ def check_correlation(dev: torch.device) -> dict:
         "backward_replaces": "avtubes/ops/correlation.py:105",
         "backward_max_abs_err": max(max(e["grad_f1"], e["grad_f2"]) for e in errs.values()),
         "backward_ms": cuda_ms(backward_kernels),
+        "backward_kernel_ms": queued_ms(backward_kernels),
         "backward_plain_ms": cuda_ms(lambda: torch.autograd.grad(
             plain_out, (p1, p2), cot, retain_graph=True)),
         "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
@@ -610,6 +767,11 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
             "heatmap_to_mask_K2_and_resize": cuda_ms(lambda: heatmap_to_mask_batch(hm)),
             "pipeline_total": cuda_ms(lambda: runner.pipeline(f8, w8)),
         }
+        # the two kernels' stages on the device alone (see `queued_ms`)
+        stage_kernel_ms = {
+            "log_spectrogram_K1": queued_ms(lambda: log_spectrogram(w8, cfg)),
+            "heatmap_to_mask_K2_and_resize": queued_ms(lambda: heatmap_to_mask_batch(hm)),
+        }
     # what batching buys: one `runner.run` per bucket on the host's clock
     # (staging, copies both ways and the pipeline; ends synchronised)
     run_ms = {}
@@ -626,7 +788,8 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
          requests_per_s=N_REQUESTS / wall, batch_hist=stats["batch_hist"],
          launches=launches, vs_plain=vs_plain,
          neighbour_heatmap_max_abs_diff=nb_heat, neighbour_max_flips=nb_flips,
-         stage_ms_batch8=stage_ms, runner_run_ms_by_bucket_host_clock=run_ms,
+         stage_ms_batch8=stage_ms, stage_kernel_ms_batch8=stage_kernel_ms,
+         runner_run_ms_by_bucket_host_clock=run_ms,
          peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **http)
     return launches
 
@@ -791,14 +954,16 @@ def main() -> int:
     launches["correlation"] = flow_launches["forward"]
     results["correlation"]["backward_launches"] = flow_launches["backward"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "algorithm_bound_ms", "library_ms", "library_call")
+            "ms", "kernel_ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "algorithm_bound_ms", "algorithm", "library_ms", "library_call",
+            "kernel_ms_how")
     kernels = []
     for key, res in results.items():
-        # the kernel's time goes under both names: `ms` and `kernel_ms`
-        res = {**res, "launches": launches[key], "kernel_ms": res["ms"]}
-        # K3 carries its backward kernel's numbers under names of their own
-        extra = [k for k in res if k.startswith("backward_")]
+        res = {**res, "launches": launches[key], "kernel_ms_how": KERNEL_MS_HOW}
+        # a library call's time on the device alone, where there is a call;
+        # the variants' times and K3's backward kernel under names of their own
+        extra = [k for k in res if k not in keys and k.startswith(
+            ("backward_", "kernel_ms_", "ms_", "library_kernel"))]
         kernels.append({k: res[k] for k in (*keys, *extra)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(report, flush=True)

@@ -61,6 +61,7 @@ def test_light_module_import_stays_light():
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
                                   ROOT / "scripts" / "profile_torch_serving.py",
                                   ROOT / "scripts" / "profile_torch_flow_step.py",
+                                  ROOT / "scripts" / "profile_torch_kernel_variants.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
@@ -87,6 +88,29 @@ def test_serving_path_calls_no_library_transform_or_selection():
                 assert node.attr not in banned, f"{path}: torch.{node.attr}"
                 if node.attr == "sort":
                     assert path.name == "median_select.py", f"{path}: torch.sort"
+
+
+@pytest.mark.parametrize("path", [PORT / "ops" / "stft.py", PORT / "ops" / "median_select.py",
+                                  PORT / "csrc" / "stft.cu", PORT / "csrc" / "median_select.cu"],
+                         ids=lambda p: p.name)
+def test_serving_kernels_name_no_library_transform_or_selection(path):
+    """The two serving kernels and their wrappers are written by hand: their
+    sources do not so much as name a library transform or selection."""
+    text = path.read_text().lower()
+    for banned in ("torch.fft", "torch.stft", "cufft", "kthvalue", "topk", "cub::device"):
+        assert banned not in text, f"{path.name} names {banned}"
+
+
+def test_kernels_are_built_without_fast_math():
+    """IEEE float32 only: fast math would swap in approximate sin, cos, log
+    and division and flush denormals, which K1's tolerance and K2's exact
+    bit patterns do not allow."""
+    from avtubes_torch.ops import _build
+
+    flags = " ".join(_build.NVCC_FLAGS)
+    for banned in ("--use_fast_math", "-use_fast_math", "--ftz", "-ftz", "--prec-div=false"):
+        assert banned not in flags, flags
+    assert "arch=compute_90a,code=sm_90a" in flags
 
 
 def test_cost_volume_is_no_library_contraction():

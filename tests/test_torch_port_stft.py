@@ -145,3 +145,137 @@ def test_cuda_wrapper_refuses_cpu_tensor_and_bad_impl():
     with pytest.raises(ValueError, match="impl"):
         tstft.log_spectrogram_fused(x, tcfg, impl="auto")
     assert tstft.log_spectrogram_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The FFT kernel's algorithm on tensors (`log_spectrogram_fft_plain`) and its
+# host tables: held against the dense plain version, the JAX function and the
+# interpret-mode Pallas kernel for every frame length the kernel takes.
+
+def _fft_case(name, cfg):
+    """(batch, num_samples) test clips, made from a seed with numpy."""
+    rng = np.random.RandomState(7)
+    t = np.arange(cfg.num_samples, dtype=np.float64) / cfg.samplerate
+    bin_hz = cfg.samplerate / cfg.nperseg
+    if name == "noise":
+        x = np.clip(rng.randn(2, cfg.num_samples) * 0.2, -1, 1)
+    elif name == "sine":          # full scale: at a bin's centre, and between two
+        x = np.stack([np.sin(2 * np.pi * 20.0 * bin_hz * t),
+                      np.sin(2 * np.pi * 20.5 * bin_hz * t)])
+    elif name == "dc_offset":     # detrend precision
+        x = 0.9 + 1e-3 * rng.randn(2, cfg.num_samples)
+    elif name == "zero":
+        x = np.zeros((2, cfg.num_samples))
+    elif name == "int16":
+        return tspec.quantize_int16_waveform(
+            np.clip(rng.randn(2, cfg.num_samples) * 0.2, -1, 1).astype(np.float32))
+    else:
+        raise ValueError(name)
+    return x.astype(np.float32)
+
+
+FFT_CASES = ("noise", "sine", "dc_offset", "zero", "int16")
+
+
+def _fft_cfgs(nperseg):
+    kw = dict(samplerate=8000, seconds=2, nperseg=nperseg)
+    return jspec.SpectrogramConfig(**kw), tspec.SpectrogramConfig(**kw)
+
+
+def _reference(which, x, jcfg, tcfg):
+    if which == "plain":
+        return tstft.log_spectrogram_plain(torch.from_numpy(x), tcfg).numpy()
+    if which == "jax":
+        return np.asarray(jspec.log_spectrogram(jnp.asarray(x), jcfg))
+    with pltpu.force_tpu_interpret_mode():
+        wave = jspec.as_float_waveform(jnp.asarray(x))
+        return np.asarray(_log_spectrogram_pallas(wave, jcfg, tile=32))
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax", "pallas_interpret"])
+@pytest.mark.parametrize("case", FFT_CASES)
+@pytest.mark.parametrize("nperseg", tstft.FFT_NPERSEG)
+def test_fft_plain_matches(nperseg, case, reference):
+    jcfg, tcfg = _fft_cfgs(nperseg)
+    assert tstft.algorithm_for(tcfg) == "fft"
+    x = _fft_case(case, tcfg)
+    got = tstft.log_spectrogram_fft_plain(torch.from_numpy(x), tcfg).numpy()
+    want = _reference(reference, x, jcfg, tcfg)
+    assert got.shape == want.shape == (2, *tcfg.shape) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("nperseg", tstft.FFT_NPERSEG)
+def test_fft_host_tables_against_float64_numpy(nperseg):
+    _, tcfg = _fft_cfgs(nperseg)
+    tab = tstft.fft_tables(tcfg)
+    m = nperseg // 2
+    np.testing.assert_array_equal(
+        tab["window"], tspec.tukey_periodic(nperseg, tcfg.tukey_alpha).astype(np.float32))
+    j = np.arange(m)
+    for row, want in zip(tab["twiddles"], (np.cos(2 * np.pi * j / m), np.sin(2 * np.pi * j / m),
+                                           np.cos(2 * np.pi * j / nperseg),
+                                           np.sin(2 * np.pi * j / nperseg))):
+        assert row.dtype == np.float32
+        np.testing.assert_allclose(row, want, rtol=0, atol=6e-8)   # one rounding
+    np.testing.assert_array_equal(tab["scale"], tspec._onesided_scale(tcfg).astype(np.float32))
+    assert sorted(tab["index"].tolist()) == list(range(m))         # a permutation
+    # the algorithm in float64 with these tables IS the real DFT of a
+    # windowed, detrended frame, to the tables' own rounding
+    rng = np.random.RandomState(3)
+    frames = rng.randn(6, nperseg)
+    frames = (frames - frames.mean(-1, keepdims=True)) * tab["window"].astype(np.float64)
+    xr, xi = tstft.real_fft_by_tables(
+        torch.from_numpy(frames), torch.from_numpy(tab["twiddles"].astype(np.float64)),
+        torch.from_numpy(tab["index"]))
+    want = 2.0 * np.fft.rfft(frames, axis=-1)
+    peak = np.abs(want).max()
+    np.testing.assert_allclose(xr.numpy(), want.real, rtol=0, atol=1e-6 * peak)
+    np.testing.assert_allclose(xi.numpy(), want.imag, rtol=0, atol=1e-6 * peak)
+    # DC and Nyquist are real, and neither is doubled by the scale
+    assert float(xi[:, 0].abs().max()) == 0.0 and float(xi[:, -1].abs().max()) == 0.0
+    assert tab["scale"][0] == tab["scale"][-1] == np.float32(0.5) * tab["scale"][1]
+
+
+def test_algorithm_choice_depends_on_nperseg_alone():
+    for nperseg, want in ((256, "fft"), (512, "fft"), (1024, "fft"), (400, "dense"),
+                          (128, "dense"), (2048, "dense")):
+        for sr, noverlap in ((8000, 1), (22050, nperseg // 2)):
+            cfg = tspec.SpectrogramConfig(samplerate=sr, seconds=1, nperseg=nperseg,
+                                          noverlap=noverlap)
+            assert tstft.algorithm_for(cfg) == want
+    with pytest.raises(ValueError, match="nperseg"):
+        tstft.fft_tables(tspec.SpectrogramConfig(nperseg=400, noverlap=150))
+
+
+@pytest.mark.parametrize("nperseg", tstft.FFT_NPERSEG)
+def test_fft_kernel_table_is_the_host_tables_in_lane_order(nperseg):
+    """Every row of the table the CUDA kernel reads, rebuilt entry by entry
+    from `fft_tables` with the bit reversals written out as strings."""
+    _, tcfg = _fft_cfgs(nperseg)
+    tab = tstft.fft_tables(tcfg)
+    got = tstft.fft_kernel_table(tcfg)
+    m = nperseg // 2
+    e = m // 32
+    ebits = e.bit_length() - 1
+    rev = lambda v, bits: int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+    cos_m, sin_m, cos_n, sin_n = tab["twiddles"]
+    assert got.shape == (7 * e + 9, 32) and got.dtype == np.float32
+    for r in range(e):
+        for lane in range(32):
+            k = e * rev(lane, 5) + rev(r, ebits)
+            assert tab["index"][r * 32 + lane] == k
+            want = {0: tab["window"][64 * r + 2 * lane],
+                    e: tab["window"][64 * r + 2 * lane + 1],
+                    2 * e: cos_m[lane * rev(r, ebits)], 3 * e: sin_m[lane * rev(r, ebits)],
+                    4 * e + 8: cos_n[k], 5 * e + 8: sin_n[k],
+                    6 * e + 8: np.float32(0.25) * tab["scale"][k]}
+            for row, value in want.items():
+                assert got[row + r, lane] == value, (row, r, lane)
+    for s in range(4):
+        h = 16 >> s
+        for lane in range(32):
+            j = (lane % h) * (m // (2 * h))
+            c, sn = (cos_m[j], sin_m[j]) if lane & h else (1.0, 0.0)
+            assert got[4 * e + s, lane] == c and got[4 * e + 4 + s, lane] == sn
+    assert np.all(got[7 * e + 8] == np.float32(0.25) * tab["scale"][m])
