@@ -18,8 +18,10 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               |diff| <= 5e-4: the sums run in another order), K2 exact median
               mask, every variant (bit-equal to the plain bisection and to
               torch.sort()[k]), K3 correlation cost volume, forward and both
-              gradients (max |diff| <= 1e-5 on unit-scale inputs against the
-              plain version and its autograd).  CUDA-event times of the
+              gradients from one launch (max |diff| <= 1e-5 on unit-scale
+              inputs against the plain version and its autograd; every case
+              on the variant and tile its geometry names, the library's plan
+              equal to the Python twin's; two runs bit-identical).  CUDA-event times of the
               kernel, the plain version and, where there is one, a library
               call beside them: `ms` over back-to-back calls as a caller
               makes them (the host's launch rate is in it), `kernel_ms` over
@@ -484,10 +486,18 @@ def check_correlation(dev: torch.device) -> dict:
         "ragged_stride2": (maps(3, 7, 9, 10), 4, 2),
         "stride_not_dividing_max_disp": (maps(2, 9, 7, 12), 4, 3),
         "window_larger_than_map": (maps(2, 5, 6, 8), 7, 1),
-        # 30 columns in four segments of 8: the last one is ragged
+        # 30 columns: the last tile of a row is ragged
         "ragged_last_segment": (maps(2, 5, 30, c), FLOW_MAX_DISP, 1),
-        # a 17x17 window at C = 96: only one-column tiles fit (116 KB each)
+        # the same map at stride 2: row segments of 15 columns, 16-byte loads
+        "ragged_last_segment_stride2": (maps(2, 5, 30, c), FLOW_MAX_DISP, 2),
+        # 30 x 30 in tiles of 4 x 28: ragged below and to the right, C = 2 chunks
+        "ragged_tiles": (maps(24, 30, 30, 32), FLOW_MAX_DISP, 1),
+        # a 5x5 window on many maps: tiles of several rows, the backward
+        # kernel whose window is not known at compile time
+        "window_5x5": (maps(40, 14, 14, 24), 2, 1),
+        # a 17x17 window at C = 96: two groups of 9 dx a row of the window
         "one_column_tiles": (maps(1, 6, 6, c), 8, 1),
+        # C = 20: one whole chunk of 16 channels and a quarter of one
         "max_disp_zero": (maps(2, 6, 5, 20), 0, 1),
         # a 41x41 window: no tile fits shared memory, the direct kernels run
         "window_exceeds_shared_memory": (maps(1, 6, 6, 64), 20, 1),
@@ -499,20 +509,48 @@ def check_correlation(dev: torch.device) -> dict:
     off2 = torch.randn(4 * 10 * 12 * 32 + 1, generator=gen, device=dev)[1:].view(4, 10, 12, 32)
     require(off1.data_ptr() % 16 != 0 and off1.is_contiguous(), "case is not unaligned")
     cases["unaligned_pointers"] = ((off1, off2), 3, 1)
-    errs = {}
+    # the variant each case must take, from its geometry and alignment alone
+    variants = {name: "tiled" for name in cases}
+    variants.update(ragged_stride2="rowseg_scalar", unaligned_pointers="rowseg_scalar",
+                    stride_not_dividing_max_disp="rowseg_vec4",
+                    ragged_last_segment_stride2="rowseg_vec4",
+                    window_exceeds_shared_memory="direct")
+    errs, plans = {}, {}
     for name, ((f1, f2), md, st) in cases.items():
+        geometry = (*f1.shape, md, st, f1.data_ptr() % 16 == 0 and f2.data_ptr() % 16 == 0)
+        for what, backward, gradients in (("forward", False, 1), ("backward_both", True, 2),
+                                          ("backward_one", True, 1)):
+            plan = k3.correlation_plan_cuda(*geometry, backward, gradients)
+            twin = k3.correlation_plan(*geometry, backward, gradients)
+            require(plan == twin,
+                    f"K3 {name}: the library plans {plan}, the Python twin {twin}")
+            require(plan["variant"] == variants[name],
+                    f"K3 {name}: took {plan['variant']}, not {variants[name]}")
+            plans.setdefault(name, {})[what] = plan
         errs[name] = correlation_errors(f1, f2, md, st)
         require(max(errs[name].values()) <= CORR_ATOL, f"K3 {name}: {errs[name]}")
     zero_out = k3.correlation_cost_volume(*cases["all_zero_f2"][0], 2, 1)
     require(float(zero_out.abs().max()) == 0.0, "K3: all-zero f2 gave a non-zero volume")
 
-    # only the input that needs a gradient gets a backward launch
+    # one backward launch whatever is asked for, and it computes only the
+    # gradients that are needed; without atomics two runs give the same bits
     (f1, f2), md, st = cases["pretrain_step"]
-    before = k3.correlation_backward_cuda.launches
-    only1 = f1.detach().requires_grad_()
-    k3.correlation_cost_volume(only1, f2, md, st).sum().backward()
-    require(k3.correlation_backward_cuda.launches == before + 1,
-            "K3: a gradient nobody needs was computed")
+    for need1, need2 in ((True, False), (False, True), (True, True)):
+        before = (k3.correlation_backward_cuda.launches,
+                  k3.correlation_backward_cuda.gradients)
+        a = f1.detach().requires_grad_(need1)
+        b_ = f2.detach().requires_grad_(need2)
+        k3.correlation_cost_volume(a, b_, md, st).square().sum().backward()
+        first = [t.grad.clone() for t in (a, b_) if t.grad is not None]
+        require((k3.correlation_backward_cuda.launches - before[0],
+                 k3.correlation_backward_cuda.gradients - before[1])
+                == (1, need1 + need2), "K3: a gradient nobody needs was computed")
+        require(len(first) == need1 + need2, "K3: a needed gradient is missing")
+        a.grad = b_.grad = None
+        k3.correlation_cost_volume(a, b_, md, st).square().sum().backward()
+        again = [t.grad for t in (a, b_) if t.grad is not None]
+        require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                "K3: two runs of the backward differ in their bits")
     # a CUDA tensor never takes the plain version silently
     for bad in (f1.double(), f1.permute(0, 3, 1, 2)):
         try:
@@ -534,10 +572,23 @@ def check_correlation(dev: torch.device) -> dict:
     require(not n1.is_contiguous(), "layout case is already channels last")
 
     def backward_kernels():
+        k3.correlation_backward_both_cuda(cot, f1, f2, md, st)
+
+    def backward_f1():
         k3.correlation_backward_cuda(cot, f2, "f1", md, st)
+
+    def backward_f2():
         k3.correlation_backward_cuda(cot, f1, "f2", md, st)
 
     big1, big2 = cases["clip_pairs_300"][0]
+    big_cot = torch.randn((CLIP_PAIRS, h, w, d), generator=gen, device=dev)
+
+    def backward_batch300():
+        k3.correlation_backward_both_cuda(big_cot, big1, big2, md, st)
+
+    def forward_batch300():
+        k3.correlation_forward_cuda(big1, big2, md, st)
+
     return {
         "name": "correlation_forward_cuda", "route": "cuda",
         "source": "avtubes_torch/csrc/correlation.cu",
@@ -550,24 +601,36 @@ def check_correlation(dev: torch.device) -> dict:
         "plain_ms": cuda_ms(lambda: k3.correlation_plain(f1, f2, md, st)),
         "bound_ms": fwd_bound, "bound_by": fwd_by,
         "algorithm_bound_ms": fwd_bound,
-        "algorithm": "one fp32 dot product per output from shared-memory tiles",
+        "algorithm": "2-D tiles with a shared halo, channel chunks by cp.async (a ring of "
+                     "two where the grid is one wave), 4 x 9 outputs a thread in registers",
+        "cases": {name: {"variant": variants[name], **plans[name]} for name in cases},
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes a cost volume",
-        # both gradients: two launches of the backward kernel
-        "backward_name": "correlation_backward_cuda",
+        # both gradients: one launch of the backward kernel
+        "backward_name": "correlation_backward_both_cuda",
         "backward_replaces": "avtubes/ops/correlation.py:105",
         "backward_max_abs_err": max(max(e["grad_f1"], e["grad_f2"]) for e in errs.values()),
         "backward_ms": cuda_ms(backward_kernels),
         "backward_kernel_ms": queued_ms(backward_kernels),
+        "backward_graph_ms": graph_ms(backward_kernels),
+        "backward_kernel_ms_grad_f1_only": queued_ms(backward_f1),
+        "backward_graph_ms_grad_f1_only": graph_ms(backward_f1),
+        "backward_kernel_ms_grad_f2_only": queued_ms(backward_f2),
+        "backward_graph_ms_grad_f2_only": graph_ms(backward_f2),
         "backward_plain_ms": cuda_ms(lambda: torch.autograd.grad(
             plain_out, (p1, p2), cot, retain_graph=True)),
         "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
         # the copy to channels last that (B, C, H, W) features cost, with the kernel
         "ms_from_channels_first": cuda_ms(
             lambda: k3.correlation_cost_volume(n1, n2, md, st)),
-        "ms_batch300": cuda_ms(lambda: k3.correlation_forward_cuda(big1, big2, md, st)),
+        "ms_batch300": cuda_ms(forward_batch300),
+        "kernel_ms_batch300": queued_ms(forward_batch300, iters=20),
         "bound_ms_batch300": bound(4 * CLIP_PAIRS * h * w * (2 * c + d),
                                    2.0 * CLIP_PAIRS * h * w * c * d)[0],
+        "backward_ms_batch300": cuda_ms(backward_batch300),
+        "backward_kernel_ms_batch300": queued_ms(backward_batch300, iters=20),
+        "backward_bound_ms_batch300": bound(4 * CLIP_PAIRS * h * w * (4 * c + d),
+                                            4.0 * CLIP_PAIRS * h * w * c * d)[0],
     }
 
 
@@ -873,6 +936,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         dir_kernel = os.path.join(tmp, "kernel")
         k3.correlation_forward_cuda.launches = 0
         k3.correlation_backward_cuda.launches = 0
+        k3.correlation_backward_cuda.gradients = 0
         t0 = time.monotonic()
         with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
             final = flow_cli.main(["--train_flow", *args, "--summaries_dir", dir_kernel])
@@ -882,9 +946,11 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         losses = read_losses(dir_kernel)
         require(len(losses) == FLOW_STEPS and np.isfinite(losses).all(), losses)
         require(all(np.isfinite(v) for v in final.values()), final)
-        # one forward per step and one per held-out probe (two kinds); two
-        # backward launches per step, one per gradient
-        require(launches == {"forward": FLOW_STEPS + 2, "backward": 2 * FLOW_STEPS}, launches)
+        # one forward per step and one per held-out probe (two kinds); one
+        # backward launch per step, for both gradients
+        require(launches == {"forward": FLOW_STEPS + 2, "backward": FLOW_STEPS}, launches)
+        require(k3.correlation_backward_cuda.gradients == 2 * FLOW_STEPS,
+                k3.correlation_backward_cuda.gradients)
         ckpt = latest_checkpoint(dir_kernel, "flownet")
         require(ckpt is not None and ckpt.name == "flownet_ep0" and ckpt.is_file(), ckpt)
         # restored into a differently seeded net, the weights give the
