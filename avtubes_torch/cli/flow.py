@@ -9,10 +9,10 @@ It runs on the card (`--device cuda`, the default, raises without one;
 `--device cpu` must be asked for).
 
 Without --train_flow the JAX package runs the flow-consistency
-trainer; that needs the train-mode AVENet, the hard-way loss, the
-augmentations and the data pipeline, which are not ported yet, so this
-entry point exits with an error that says so.  `--flow_loss_weight` and
-`--no_flow` belong to that trainer; they parse as they do there.
+trainer (`train/flow.py`), which is not ported yet (ROADMAP.md Queue 1
+item 10), so this entry point exits with an error that says so.
+`--flow_loss_weight` and `--no_flow` belong to that trainer; they parse as
+they do there.
 """
 
 import sys
@@ -35,9 +35,8 @@ def main(argv=None):
     if not train_flow:
         raise SystemExit(
             "avtubes_torch.cli.flow: the flow-consistency trainer "
-            "(train/flow.py) is not ported yet — it lands with the "
-            "flagship-trainer slice; run with --train_flow for the "
-            "FlowNetLite pretrainer")
+            "(train/flow.py) is not ported yet (ROADMAP.md Queue 1 item 10); "
+            "run with --train_flow for the FlowNetLite pretrainer")
     from avtubes_torch.train.flow_pretrain import run_pretrain
 
     metrics = run_pretrain(cfg, steps_cap=cfg.train.steps_cap)

@@ -30,6 +30,7 @@ import torch
 
 _TORCH_NAME_BY_STEM = {"stem_vision": "conv1", "stem_audio": "conv1_a",
                        "stem_flow": "conv1_flow"}
+_STEM_BY_TORCH_NAME = {v: k for k, v in _TORCH_NAME_BY_STEM.items()}
 
 
 def _bn_out(params_node: Mapping, stats_node: Mapping, prefix: str,
@@ -78,6 +79,30 @@ def resnet2d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
         else:
             raise ValueError(f"unknown backbone entry {name}")
     return out
+
+
+_FLAX_LEAF = {"weight": "kernel"}
+_FLAX_BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                 "running_var": "var"}
+
+
+def flax_path(name: str) -> tuple[str, ...]:
+    """The flax path of one of the port's AVENet `state_dict` names — the
+    inverse of the rename above: ``imgnet.layer1.0.bn2.weight`` ->
+    ``('imgnet', 'layer1_block0', 'bn2', 'scale')``,
+    ``audnet.conv1_a.weight`` -> ``('audnet', 'stem_audio', 'kernel')``."""
+    parts = name.split(".")
+    net, head, leaf = parts[0], parts[1], parts[-1]
+    if head in _STEM_BY_TORCH_NAME:
+        return (net, _STEM_BY_TORCH_NAME[head], _FLAX_LEAF.get(leaf, leaf))
+    if head == "bn1":
+        return (net, "stem_bn", _FLAX_BN_LEAF.get(leaf, leaf))
+    block = f"{head}_block{parts[2]}"
+    sub = parts[3]
+    if sub == "downsample":
+        sub = "downsample_conv" if parts[4] == "0" else "downsample_bn"
+    table = _FLAX_BN_LEAF if "bn" in sub else _FLAX_LEAF
+    return (net, block, sub, table.get(leaf, leaf))
 
 
 def avenet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:

@@ -149,3 +149,71 @@ def load_artifact(blob: bytes, device: str | torch.device | None = None
     pipeline = LocalizerPipeline(model, spec_cfg, int(meta["image_size"]))
     pipeline = pipeline.to(dev).to(memory_format=torch.channels_last)
     return pipeline, meta
+
+
+def validate_artifact(model: AVENet, blob: bytes, spec_cfg: SpectrogramConfig,
+                      image_size: int = 224, n: int = 16, seed: int = 0,
+                      device: str | torch.device | None = None) -> dict:
+    """Score an artifact against the in-memory float32 pipeline of `model`.
+
+    Both pipelines score the same synthetic boxed eval set (random frames
+    and waveforms, a random rectangle of ground truth each, drawn from
+    `seed` as the JAX package draws them); the report carries the
+    cIoU@0.5/AUC of each, their deltas, the mean per-sample mask IoU between
+    the two, and the heatmap max-abs-diff and correlation.  An exact export
+    comes back with zero deltas; an artifact whose audio transport quantizes
+    shows that cost.  Runs on `device` (default: the card, or an error).
+    """
+    from avtubes_torch.data.spectrogram import prepare_audio_payload
+    from avtubes_torch.evaluation.metrics import auc_from_ciou, ciou_single
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (n, image_size, image_size, 3), dtype=np.uint8)
+    waves = (rng.rand(n, spec_cfg.num_samples).astype(np.float32) * 2 - 1)
+    gts = []
+    for _ in range(n):
+        x0, y0 = rng.randint(10, 100, 2)
+        w, h = rng.randint(60, 120, 2)
+        g = np.zeros((224, 224), np.float32)
+        g[y0:y0 + h, x0:x0 + w] = 1.0
+        gts.append(g)
+
+    was_training = model.training
+    ref = LocalizerPipeline(model, spec_cfg, image_size)
+    try:
+        masks_ref, heat_ref = (t.cpu().numpy() for t in ref(
+            torch.from_numpy(frames).to(dev), torch.from_numpy(waves).to(dev)))
+    finally:
+        model.train(was_training)
+    art, meta = load_artifact(blob, dev)
+    # the eval waveforms in the artifact's own audio transport: a transport
+    # artifact's deltas include its quantization
+    payload = prepare_audio_payload(waves, meta.get("audio_transport", "float32"), spec_cfg)
+    masks_art, heat_art = (t.cpu().numpy() for t in art(
+        torch.from_numpy(frames).to(dev), torch.from_numpy(payload).to(dev)))
+
+    def headline(masks):
+        cious = np.asarray([ciou_single(masks[i], gts[i], 0.5) for i in range(n)])
+        return float(np.mean(cious >= 0.5)), auc_from_ciou(cious), cious
+
+    ciou_ref, auc_ref, cious_ref = headline(masks_ref)
+    ciou_art, auc_art, cious_art = headline(masks_art)
+    inter = np.minimum(masks_ref, masks_art).sum(axis=(1, 2))
+    union = np.maximum(masks_ref, masks_art).sum(axis=(1, 2))
+    pair_iou = float(np.mean(inter / np.maximum(union, 1.0)))
+    hr = np.asarray(heat_ref, np.float64).ravel()
+    ha = np.asarray(heat_art, np.float64).ravel()
+    return {
+        "n": int(n),
+        "ciou_f32": round(ciou_ref, 4),
+        "ciou_artifact": round(ciou_art, 4),
+        "ciou_delta": round(abs(ciou_art - ciou_ref), 4),
+        "auc_f32": round(auc_ref, 4),
+        "auc_artifact": round(auc_art, 4),
+        "auc_delta": round(abs(auc_art - auc_ref), 4),
+        "ciou_per_sample_max_delta": round(float(np.abs(cious_art - cious_ref).max()), 4),
+        "mask_pairwise_iou_mean": round(pair_iou, 4),
+        "heatmap_max_abs_diff": round(float(np.abs(hr - ha).max()), 5),
+        "heatmap_corr": round(float(np.corrcoef(hr, ha)[0, 1]), 5),
+    }

@@ -68,3 +68,26 @@ class AVENet(nn.Module):
         aud = aud.repeat_interleave(frames.shape[0] // aud.shape[0], dim=0)
         img = self.encode_image(frames)
         return hardway_head(img, aud, self.hardway)
+
+    def two_view_forward(self, frames: torch.Tensor, augmented: torch.Tensor,
+                         audio: torch.Tensor, t: int
+                         ) -> tuple[HardwayOutput, HardwayOutput]:
+        """Both training views with the audio encoded ONCE per clip.
+
+        The original trainer repeats each clip's spectrogram T times and runs
+        the audio backbone on B*T duplicates, once per view.  Encoding the B
+        unique spectrograms once and repeating the pooled features is the
+        same function: batch statistics over uniformly duplicated samples
+        equal those over the uniques, and the repeated features sum their
+        gradients in the backward pass.  The audio BatchNorm running
+        statistics see one update here instead of two; the train step
+        composes the second in closed form (`train/steps.py::
+        _advance_audio_stats`).  The image BatchNorm sees the clean view's
+        update and then the augmented view's, in that order.
+
+        frames/augmented: (B*T, H, W, 3); audio: (B, F, Tt, 1).
+        """
+        aud = self.encode_audio(audio).repeat_interleave(t, dim=0)    # (B*T, 512)
+        out1 = hardway_head(self.encode_image(frames), aud, self.hardway)
+        out2 = hardway_head(self.encode_image(augmented), aud, self.hardway)
+        return out1, out2

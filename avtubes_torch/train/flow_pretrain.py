@@ -14,8 +14,8 @@ so the net learns the field that pulls im1 forward onto im2.
 
 Pairs come from a translating-pattern generator and from random affine and
 two-object fields, where the true flow is known.  Pairs of consecutive
-frames of real training clips need the data pipeline, which is not ported
-yet: `run_pretrain` raises for `synthetic=False`.
+frames of real training clips (`_clip_pair_batches`) are not ported yet:
+`run_pretrain` raises for `synthetic=False`.
 
 The step differentiates through the correlation cost volume, so on the card
 it runs the hand-written forward kernel once and the backward kernel twice
@@ -230,8 +230,8 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
     if not d.synthetic:
         raise NotImplementedError(
             "flow pretraining on real clips needs consecutive-frame pairs from "
-            "the data pipeline (data/pipeline.py), which lands with the "
-            "flagship-trainer slice of avtubes_torch; run with --synthetic")
+            "the data pipeline (flow_pretrain.py::_clip_pair_batches), which is "
+            "not ported yet (ROADMAP.md Queue 1 item 10); run with --synthetic")
     device = resolve_device(cfg.train.device)
     state = create_flow_state(torch.Generator().manual_seed(cfg.train.seed + 11),
                               learning_rate, device=device, impl=impl)

@@ -46,7 +46,10 @@ def make_optimizer(params: Iterable[nn.Parameter], cfg: OptimConfig,
 class TrainState:
     """A model with its optimizer, its schedule and the count of updates.
     Updated in place: a training step mutates the parameters and the
-    optimizer's moments."""
+    optimizer's moments.  The BatchNorm running statistics live in the model
+    (its buffers), so a checkpoint of the model carries them; the trainer
+    passes the loader's steps per epoch, in which the schedule's milestones
+    (in epochs) are counted."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer

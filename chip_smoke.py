@@ -41,6 +41,19 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               flow), the same steps with the plain cost volume give the same
               loss curve, and training on translating patterns recovers a
               known shift.  Step time by CUDA events and K3's share of it.
+  6. train    the flagship hard-way trainer at the recipe's full width (two
+              ResNet-18 with layer4 at stride 1, 20 clips x 16 frames x two
+              views at 224x224, 257x431 spectrograms, float32, TF32 off):
+              `avtubes_torch.cli.train_hardway --synthetic` takes a few steps
+              and evaluates on the card (finite losses, cIoU and AUC in [0,1],
+              one checkpoint; K1 launched once a step and once an eval batch,
+              K2 once an eval batch), the same steps with the plain versions
+              of K1 and K2 give the same loss curve and masks, eight steps on
+              one batch lower the loss, and `cli.export_model` turns the
+              checkpoint into an artifact that validates with zero deltas.
+              Step time by CUDA events and on the host's clock, the loader's
+              wait, peak memory, launches a step and the device's idle share
+              (`scripts/profile_torch_train_step.py`).
 
 Then one `{"kernels": [...]}` line (per kernel: launches on its main
 path, error against the plain version, measured times, and the least time
@@ -97,6 +110,7 @@ HEATMAP_ATOL = 1e-4   # served (kernels) vs plain pipeline: K1's error through t
 MASK_FLIPS = 16       # per map: resize ulps right at the median threshold
 CORR_ATOL = 1e-5      # K3 vs plain, value and gradients, unit-scale inputs: fp32 sums in another order
 FLOW_LOSS_RTOL = 1e-3  # loss curve, kernel vs plain cost volume: sum order, then Adam steps on it
+TRAIN_LOSS_RTOL = 1e-3  # loss curve, K1 and K2 vs their plain versions: sum order, then Adam steps
 
 # the flow pretrainer's recipe shapes
 FLOW_BATCH = 20
@@ -105,6 +119,16 @@ FLOW_FEAT = (28, 28, 96)  # FlowNetLite features of a 224x224 frame
 FLOW_MAX_DISP = 4
 CLIP_PAIRS = 300          # frame pairs of one batch of 20 real clips of 16 frames
 SHIFT_MAX_STEPS = 400     # shift recovery: the JAX package's test takes 200 at 64x64
+
+# the flagship trainer's recipe shapes
+TRAIN_BATCH = 20          # clips a step
+TRAIN_FRAMES = 16         # frames a clip; two views each
+TRAIN_STEPS = 4           # CLI steps (the synthetic set holds 4 batches)
+TRAIN_EVAL_BATCHES = 1    # the synthetic hard-way test set: 8 frames in one batch
+CURVE_STEPS = 3           # plain-vs-kernel loss curve
+OVERFIT_STEPS = 8
+OVERFIT_LR = 1e-4
+TIMED_STEPS = 5
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1010,6 +1034,134 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
     return launches
 
 
+def phase_train(dev: torch.device, report: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the trainer's CLI run."""
+    from avtubes_torch.cli import export_model
+    from avtubes_torch.cli import train_hardway as train_cli
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.train.evaluate import _hardway_eval_masks
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import hardway_fused_train_step
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from profile_torch_train_step import profile_train_step, recipe_batch, step_parts_ms
+
+    cfg = SpectrogramConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        args = ["--synthetic", "--compute_dtype", "float32", "--batch_size", str(TRAIN_BATCH),
+                "--frame_density", str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE),
+                "--epochs", "1", "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
+                "--summaries_dir", run_dir]
+        # ---- (a) the main path: the CLI trains, evaluates and checkpoints
+        k1.log_spectrogram_cuda.launches = 0
+        k2.median_mask_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
+            final = train_cli.main(args)
+        cli_s = time.monotonic() - t0
+        launches = {"stft": k1.log_spectrogram_cuda.launches,
+                    "median_select": k2.median_mask_cuda.launches}
+        cli_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        with open(os.path.join(run_dir, "hardway16.metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        steps = [r for r in records if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        require(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses)
+        require(all(np.isfinite(final[k]) for k in ("loss", "hardway_loss", "aug_loss",
+                                                     "l2_loss", "consistency_loss")), final)
+        require(final["hardway_n"] == 8 and 0.0 <= final["hardway_ciou"] <= 1.0
+                and 0.0 <= final["hardway_auc"] <= 1.0, final)
+        # one K1 launch a step and one an eval batch; one K2 launch an eval batch
+        require(launches == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
+                             "median_select": TRAIN_EVAL_BATCHES}, launches)
+        ckpts = sorted(n for n in os.listdir(run_dir) if n.startswith("hardway16_ep"))
+        require(ckpts == ["hardway16_ep0"], ckpts)
+
+        # ---- (d) the checkpoint as a serving artifact, validated
+        with contextlib.redirect_stdout(sys.stderr):
+            validation = export_model.main(["--summaries_dir", run_dir, "--out",
+                                            os.path.join(tmp, "model.avt"), "--image_size",
+                                            str(IMAGE_SIZE), "--validate", "8"])
+        require(all(validation[k] == 0.0 for k in ("ciou_delta", "auc_delta",
+                                                   "ciou_per_sample_max_delta",
+                                                   "heatmap_max_abs_diff")), validation)
+
+    # ---- (b) the same steps with the plain versions of K1 and K2
+    batches = [recipe_batch(dev, TRAIN_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg, seed=SEED + i)
+               for i in range(CURVE_STEPS)]
+
+    def curve(impl: str, lr: float, data) -> tuple[list[float], object]:
+        state = create_train_state(AVENet(generator=torch.Generator().manual_seed(SEED)).to(dev),
+                                   OptimConfig(learning_rate=lr))
+        return [float(hardway_fused_train_step(state, c, w, d, cfg, image_size=IMAGE_SIZE,
+                                               impl=impl)["loss"]) for c, w, d in data], state
+
+    recipe_lr = OptimConfig().learning_rate
+    kernel_losses, state = curve("kernel", recipe_lr, batches)
+    before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
+    plain_losses, plain_state = curve("plain", recipe_lr, batches)
+    del plain_state
+    rel = float(np.max(np.abs(np.array(kernel_losses) - plain_losses) / np.abs(plain_losses)))
+    require(rel <= TRAIN_LOSS_RTOL, (kernel_losses, plain_losses))
+    frames8 = batches[1][0][:8, 0].contiguous()
+    waves8 = batches[1][1][:8].contiguous()
+    masks = _hardway_eval_masks(state.model, frames8, waves8, cfg)
+    plain_masks = _hardway_eval_masks(state.model, frames8, waves8, cfg, impl="plain")
+    require((k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
+            == (before_plain[0] + 1, before_plain[1] + 1), "impl='plain' launched a kernel")
+    flips = int((masks != plain_masks).sum(dim=(1, 2)).max())
+    require(flips <= MASK_FLIPS, f"eval masks, kernels vs plain: {flips} flips")
+
+    # ---- (c) eight steps on one batch lower the loss
+    overfit, overfit_state = curve("kernel", OVERFIT_LR, [batches[0]] * OVERFIT_STEPS)
+    del overfit_state
+    require(np.isfinite(overfit).all() and overfit[-1] < overfit[0], overfit)
+
+    # ---- step time at the recipe batch, memory, launches and idle share
+    clips, waves, draws = batches[0]
+
+    def step():
+        return hardway_fused_train_step(state, clips, waves, draws, cfg, image_size=IMAGE_SIZE)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    step_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t0 = time.monotonic()
+    for _ in range(TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_host_ms = (time.monotonic() - t0) * 1e3 / TIMED_STEPS
+    profiled = profile_train_step(state, clips, waves, draws, cfg, IMAGE_SIZE, steps=1)
+    parts = step_parts_ms(state, clips, waves, draws, cfg, IMAGE_SIZE)
+    waits = [r["loader_wait_ms"] for r in steps]
+    emit("train", card=report, batch=TRAIN_BATCH, frames=TRAIN_FRAMES, views=2,
+         image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), dtype="float32",
+         cli_steps=TRAIN_STEPS, cli_seconds_host_clock=round(cli_s, 2), launches=launches,
+         losses=losses, final=final, checkpoints=ckpts, validation=validation,
+         curve_kernel=kernel_losses, curve_plain=plain_losses,
+         curve_max_rel_diff_vs_plain=rel, eval_mask_flips_vs_plain=flips,
+         overfit_lr=OVERFIT_LR, overfit_losses=overfit,
+         train_step_ms=step_ms, train_step_ms_host_clock=step_host_ms,
+         loader_wait_ms_per_step=waits,
+         loader_wait_ms_after_the_first=float(np.mean(waits[1:])),
+         max_memory_allocated_gib_cli=cli_peak_gib,
+         max_memory_allocated_gib_step=step_peak_gib,
+         profile=profiled, k1_share_of_step=profiled["k1_kernel_ms_per_step"] / step_ms,
+         step_parts_ms=parts)
+    return launches
+
+
 def main() -> int:
     t_start = time.monotonic()
     dev, report = phase_device()
@@ -1017,15 +1169,21 @@ def main() -> int:
     results = phase_kernels(dev)
     launches = phase_serve(dev, report)
     flow_launches = phase_flow(dev, report, results["correlation"])
-    launches["correlation"] = flow_launches["forward"]
+    train_launches = phase_train(dev, report)
+    # each path's count, taken with the counts set to 0 just before it
+    by_path = {"stft": {"serve": launches["stft"], "train": train_launches["stft"]},
+               "median_select": {"serve": launches["median_select"],
+                                 "train": train_launches["median_select"]},
+               "correlation": {"flow": flow_launches["forward"]}}
     results["correlation"]["backward_launches"] = flow_launches["backward"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "kernel_ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "kernel_ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "algorithm_bound_ms", "algorithm", "library_ms", "library_call",
             "kernel_ms_how")
     kernels = []
     for key, res in results.items():
-        res = {**res, "launches": launches[key], "kernel_ms_how": KERNEL_MS_HOW}
+        res = {**res, "launches": sum(by_path[key].values()), "launches_by_path": by_path[key],
+               "kernel_ms_how": KERNEL_MS_HOW}
         # a library call's time on the device alone, where there is a call;
         # the variants' times and K3's backward kernel under names of their own
         extra = [k for k in res if k not in keys and k.startswith(

@@ -24,7 +24,10 @@ def test_expected_modules_exist():
                  "data.audio", "core.export", "core.serving", "cli.serve",
                  "ops._build", "ops.correlation", "ops.warp", "models.flownet",
                  "train.state", "train.flow_pretrain", "core.checkpoint",
-                 "core.config", "utils.logging", "cli.flow"):
+                 "core.config", "utils.logging", "cli.flow", "losses.losses",
+                 "train.steps", "train.evaluate", "train.hardway", "evaluation.metrics",
+                 "evaluation.gt", "data.index", "data.pipeline", "data.synthetic",
+                 "core.reference_checkpoint", "cli.train_hardway", "cli.export_model"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -61,6 +64,7 @@ def test_light_module_import_stays_light():
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
                                   ROOT / "scripts" / "profile_torch_serving.py",
                                   ROOT / "scripts" / "profile_torch_flow_step.py",
+                                  ROOT / "scripts" / "profile_torch_train_step.py",
                                   ROOT / "scripts" / "profile_torch_kernel_variants.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))

@@ -67,3 +67,32 @@ def port_model(state) -> AVENet:
     model = AVENet(generator=torch.Generator().manual_seed(1))
     model.load_state_dict(avenet_from_flax(numpy_variables(state)), strict=True)
     return model.eval()
+
+
+def augment_draws_from_jax_key(key, b: int, clip_size: int, image_size: int,
+                               jitter_order: str = "random"):
+    """The draws `avtubes.data.transforms.augment_train_batch` makes from
+    `key`, by the same `jax.random` calls, as the port's `AugmentDraws`."""
+    from avtubes_torch.data.transforms import FIXED_ORDER, AugmentDraws
+
+    span = clip_size - int(image_size * 0.7) + 1
+    cols = {name: [] for name in ("flip1", "top", "left", "brightness", "contrast",
+                                  "saturation", "hue", "order", "flip2")}
+    for k in jax.random.split(key, b):
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        kb, kc, ks, kh, kp = jax.random.split(k3, 5)
+        cols["flip1"].append(bool(jax.random.bernoulli(k1, 0.5)))
+        cols["top"].append(int(jax.random.randint(k2, (), 0, span)))
+        cols["left"].append(int(jax.random.randint(jax.random.fold_in(k2, 1), (), 0, span)))
+        for name, kk in (("brightness", kb), ("contrast", kc), ("saturation", ks)):
+            cols[name].append(float(jax.random.uniform(kk, (), minval=0.5, maxval=1.5)))
+        cols["hue"].append(float(jax.random.uniform(kh, (), minval=-0.5, maxval=0.5)))
+        cols["order"].append(np.asarray(jax.random.permutation(kp, 4)).tolist()
+                             if jitter_order == "random" else list(FIXED_ORDER))
+        cols["flip2"].append(bool(jax.random.bernoulli(k4, 0.5)))
+    return AugmentDraws(
+        flip1=torch.tensor(cols["flip1"]), top=torch.tensor(cols["top"]),
+        left=torch.tensor(cols["left"]),
+        **{name: torch.tensor(cols[name], dtype=torch.float32)
+           for name in ("brightness", "contrast", "saturation", "hue")},
+        order=torch.tensor(cols["order"]), flip2=torch.tensor(cols["flip2"]))
