@@ -2,16 +2,20 @@
 
 Counterpart of `avtubes/cli/export_model.py`.  Reads the trainer's
 `hardway16_ep<N>` checkpoint (the latest in `--summaries_dir`, or
-`--pretrained_path`) and writes the float32 localizer artifact of
+`--pretrained_path`) and writes the localizer artifact of
 `avtubes_torch.core.export.export_localizer`, which `cli/serve.py` loads.
+The model is built as the trainer builds it (`train/hardway.py::
+build_model`), so the artifact runs in `--compute_dtype`: bfloat16 by
+default, as in the JAX package; the header records it and the weights stay
+float32.
 
     python -m avtubes_torch.cli.export_model --summaries_dir ckpts/ \
         --out model.avt [--audio_transport float32] [--validate [N]] \
         [--validate_tol 0.01] [--device cuda]
 
 `--validate [N]` scores the written artifact against the checkpoint's
-float32 pipeline on an N-sample synthetic boxed eval set (default 16) and
-prints `validate: {...}`; a cIoU or AUC delta above `--validate_tol` exits
+pipeline, in the same compute dtype, on an N-sample synthetic boxed eval
+set (default 16) and prints `validate: {...}`; a cIoU or AUC delta above `--validate_tol` exits
 with code 2 (the artifact stays on disk).  The checkpoint is read, and the
 validation runs, on `--device` (default: the card, or an error).
 
@@ -30,8 +34,7 @@ from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import resolve_device
 from avtubes_torch.core.export import export_localizer, validate_artifact
 from avtubes_torch.data.spectrogram import SpectrogramConfig
-from avtubes_torch.models.avenet import AVENet
-from avtubes_torch.train.hardway import HARDWAY_TAG
+from avtubes_torch.train.hardway import HARDWAY_TAG, build_model
 
 NOT_PORTED = ("{flag} is not ported to avtubes_torch (int8 convolutions and "
               "space-to-depth stems: ROADMAP.md Queue 1 item 11)")
@@ -70,7 +73,7 @@ def main(argv=None):
     d = cfg.data
     device = resolve_device(cfg.train.device)
     spec_cfg = SpectrogramConfig(samplerate=d.samplerate, seconds=d.audio_seconds)
-    model = AVENet(hardway=cfg.hardway, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.Generator().manual_seed(0))
     ckpt = cfg.train.pretrained_path or latest_checkpoint(cfg.train.summaries_dir,
                                                           HARDWAY_TAG)
     if ckpt:
@@ -85,7 +88,8 @@ def main(argv=None):
                             audio_transport=audio_transport,
                             extra_meta={"s2d": False, "quant": None})
     Path(out).write_bytes(blob)
-    print(f"wrote {out} ({len(blob) / 1e6:.1f} MB, audio_transport={audio_transport})")
+    print(f"wrote {out} ({len(blob) / 1e6:.1f} MB, audio_transport={audio_transport}, "
+          f"compute_dtype={cfg.train.compute_dtype})")
 
     report = None
     if validate_n:
@@ -94,7 +98,7 @@ def main(argv=None):
         print("validate:", json.dumps(report))
         worst = max(report["ciou_delta"], report["auc_delta"])
         if worst > validate_tol:
-            print(f"WARNING: artifact deviates from the f32 pipeline by {worst:.4f} "
+            print(f"WARNING: artifact deviates from the checkpoint's pipeline by {worst:.4f} "
                   f"cIoU/AUC (> --validate_tol {validate_tol}); NOT serving-safe "
                   "without a real-data check", flush=True)
             raise SystemExit(2)

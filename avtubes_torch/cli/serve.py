@@ -10,10 +10,14 @@ coalesced into batched device calls by
 
 `--device` defaults to `cuda`; on a machine without a card the server
 refuses to start rather than serve from the CPU (`--device cpu` asks for
-that explicitly).  The weights and the head are float32; whether cuDNN may
-run the float32 convolutions in TF32 follows
-`torch.backends.cudnn.allow_tf32` (PyTorch's default allows it), which this
-program leaves as it finds it.
+that explicitly).  The backbones run in the compute dtype the artifact's
+header names (`compute_dtype`: bfloat16, the export's default, or float32;
+an older header without it is float32), reported by `/healthz` and
+`/stats`; the weights and the head are float32.  Whether cuDNN may run
+float32 convolutions in TF32 follows `torch.backends.cudnn.allow_tf32`
+(PyTorch's default allows it), which this program leaves as it finds it; it
+turns cuDNN's autotuner on (`torch.backends.cudnn.benchmark`), which the
+warmup of every batch bucket feeds.
 
 API (JSON over HTTP):
   POST /localize   {"image": <b64 JPEG/PNG>, "audio": <b64 WAV>}
@@ -24,7 +28,8 @@ API (JSON over HTTP):
                        "latency_ms": ...}
   GET  /healthz    -> {"status": "ok", "model": {...}}
   GET  /stats      -> micro-batcher counters (requests, batches,
-                      batch-size histogram, device time)
+                      batch-size histogram, device time) and the
+                      artifact's compute_dtype
 
 Input contract (from the artifact header): images are decoded, shortest-
 side bicubic-resized and center-cropped to the export's image_size; audio
@@ -144,7 +149,8 @@ def build_handler(batcher, meta: dict, request_timeout_s: float,
             if self.path == "/healthz":
                 self._json(200, {"status": "ok", "model": meta})
             elif self.path == "/stats":
-                self._json(200, batcher.snapshot())
+                self._json(200, {**batcher.snapshot(),
+                                 "compute_dtype": meta["compute_dtype"]})
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -216,8 +222,15 @@ def main(argv=None):
                    help="skip running the batch buckets once at startup")
     a = p.parse_args(argv)
 
+    import torch
+
     from avtubes_torch.core.serving import ArtifactRunner, MicroBatcher
 
+    # the buckets' shapes are fixed and the warmup runs each once, so cuDNN's
+    # autotuner picks each convolution's algorithm before the first request
+    # (a float32 batch of 8 on an H100: 10.5 -> 7.5 ms of device time; bf16
+    # unchanged; PERF.md §7)
+    torch.backends.cudnn.benchmark = True
     runner = ArtifactRunner(Path(a.model).read_bytes(), max_batch=a.max_batch,
                             device=a.device)
     if not a.no_warmup:
@@ -234,7 +247,8 @@ def main(argv=None):
           f"{server.server_address[1]} (device={runner.device}, "
           f"image_size={runner.image_size}, "
           f"num_samples={runner.num_samples}, "
-          f"audio_transport={runner.audio_transport})", flush=True)
+          f"audio_transport={runner.audio_transport}, "
+          f"compute_dtype={runner.meta['compute_dtype']})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

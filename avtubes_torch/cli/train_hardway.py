@@ -1,18 +1,19 @@
 """CLI: 16-frame hard-way training (the original `train_hardway.py` flags).
 
-    python -m avtubes_torch.cli.train_hardway --compute_dtype float32 \
-        --data_path ... --og_data_path ... --og_gt_path ... \
+    python -m avtubes_torch.cli.train_hardway \
+        --data_path ... --og_data_path ... --og_gt_path ... [--gt_path ...] \
         --summaries_dir ckpts/ --batch_size 20
 
-Smoke:  python -m avtubes_torch.cli.train_hardway --synthetic \
-            --compute_dtype float32 --steps 3 --epochs 1
+Smoke:  python -m avtubes_torch.cli.train_hardway --synthetic --steps 3 --epochs 1
 
 It runs on the card (`--device cuda`, the default, raises without one;
-`--device cpu` must be asked for).  Float32 is IEEE float32 here: TF32 is
-switched off for matmuls and cuDNN convolutions.  `--compute_dtype
-bfloat16`, the flag's default as in the JAX package, is not ported and
-raises.  Prints `final: {...}`, the last step's and the last evaluation's
-metrics.
+`--device cpu` must be asked for).  The backbones compute in
+`--compute_dtype`, bfloat16 by default as in the JAX package (float32
+parameters, Adam moments and BatchNorm statistics; the head and the losses
+in float32), or float32.  Float32 is IEEE float32 here: TF32 is switched off
+for matmuls and cuDNN convolutions, which also keeps the head's product in
+float32 under bfloat16.  Prints `final: {...}`, the last step's and the last
+evaluation's metrics.
 """
 
 import sys

@@ -17,8 +17,10 @@ and `load_artifact` rebuilds the `nn.Module` from the header and loads the
 weights with ``weights_only=True`` (no code is unpickled).  The header has
 the keys of the JAX package's artifact (image_size, samplerate, seconds,
 num_samples, batch, platforms, audio_transport) plus what is needed to
-rebuild the module: the `SpectrogramConfig` and `HardwayConfig` fields and
-``"framework": "torch"``.
+rebuild the module: the `SpectrogramConfig` and `HardwayConfig` fields,
+``"compute_dtype"`` (the backbones' dtype, 'float32' or 'bfloat16'; a header
+without it is float32) and ``"framework": "torch"``.  The weights are
+float32 in either dtype.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from avtubes_torch.data.transforms import normalize_imagenet
 from avtubes_torch.evaluation.postprocess import heatmap_to_mask_batch
 from avtubes_torch.models.avenet import AVENet
 from avtubes_torch.models.hardway import HardwayConfig
+from avtubes_torch.models.resnet2d import dtype_name
 
 _MAGIC = b"AVTMETA1"
 
@@ -111,6 +114,7 @@ def export_localizer(model: AVENet, spec_cfg: SpectrogramConfig,
         "audio_transport": audio_transport,
         "spectrogram": dataclasses.asdict(spec_cfg),
         "hardway": dataclasses.asdict(model.hardway),
+        "compute_dtype": dtype_name(model.compute_dtype),
         **(extra_meta or {}),
     }
     head = json.dumps(meta, sort_keys=True).encode()
@@ -137,7 +141,9 @@ def load_artifact(blob: bytes, device: str | torch.device | None = None
             f"artifact framework is {meta.get('framework')!r}, not 'torch': "
             "this loader reads artifacts written by avtubes_torch only")
     spec_cfg = SpectrogramConfig(**meta["spectrogram"])
-    model = AVENet(hardway=HardwayConfig(**meta["hardway"]))
+    meta["compute_dtype"] = meta.get("compute_dtype", "float32")
+    model = AVENet(hardway=HardwayConfig(**meta["hardway"]),
+                   compute_dtype=meta["compute_dtype"])
     state = torch.load(io.BytesIO(blob[body + n :]), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state, strict=True)
@@ -146,15 +152,16 @@ def load_artifact(blob: bytes, device: str | torch.device | None = None
     meta["audio_shape"] = [int(s) for s in shape]
     meta["audio_dtype"] = np.dtype(dtype).name
     meta["num_samples"] = int(spec_cfg.num_samples)
-    pipeline = LocalizerPipeline(model, spec_cfg, int(meta["image_size"]))
-    pipeline = pipeline.to(dev).to(memory_format=torch.channels_last)
+    pipeline = LocalizerPipeline(model, spec_cfg, int(meta["image_size"])).to(dev)
     return pipeline, meta
 
 
 def validate_artifact(model: AVENet, blob: bytes, spec_cfg: SpectrogramConfig,
                       image_size: int = 224, n: int = 16, seed: int = 0,
                       device: str | torch.device | None = None) -> dict:
-    """Score an artifact against the in-memory float32 pipeline of `model`.
+    """Score an artifact against the in-memory pipeline of `model`, in the
+    model's own compute dtype (the checkpoint's semantics; the report's
+    `*_f32` keys carry the JAX package's names).
 
     Both pipelines score the same synthetic boxed eval set (random frames
     and waveforms, a random rectangle of ground truth each, drawn from
@@ -206,6 +213,7 @@ def validate_artifact(model: AVENet, blob: bytes, spec_cfg: SpectrogramConfig,
     ha = np.asarray(heat_art, np.float64).ravel()
     return {
         "n": int(n),
+        "compute_dtype": meta["compute_dtype"],
         "ciou_f32": round(ciou_ref, 4),
         "ciou_artifact": round(ciou_art, 4),
         "ciou_delta": round(abs(ciou_art - ciou_ref), 4),

@@ -6,6 +6,8 @@ Counterpart of `avtubes/data/pipeline.py` for the flagship trainer:
                          + `audio/<id>.wav`
   * HardwayTestSource  — one `frames/<id>.jpg` + `audio/<id>.wav` per id
                          (the 249-image hard-way test)
+  * PerFrameEvalSource — every frame of `videos/<id>.mp4` + `audio/<id>.wav`
+                         (the per-frame whole-video test; OpenCV decodes)
   * SyntheticSource    — deterministic random clips (tests, smoke runs)
 
 Decode failures are skipped and counted, not replaced.  Sources emit raw
@@ -18,8 +20,9 @@ event the consumer's stream waits on before it reads a batch.
 
 The hard-way test loads per sample (`make_hardway_loader`): the JAX
 package's batched native decoder is not ported (nor are the native C++
-WAV/JPEG decoders: the numpy and PIL paths run instead), and neither is the
-whole-video `PerFrameEvalSource` (it decodes `.mp4`).
+WAV/JPEG decoders: the numpy and PIL paths run instead).  `cv2` is imported
+inside `PerFrameEvalSource.load`, as in the JAX package, so nothing else
+needs it.
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ import torch
 
 from avtubes_torch.core.config import DataConfig
 from avtubes_torch.data.audio import prepare_waveform, read_wav
-from avtubes_torch.data.transforms import host_load_eval_frame, host_load_train_clip
+from avtubes_torch.data.transforms import (
+    host_eval_clip,
+    host_load_eval_frame,
+    host_load_train_clip,
+)
 
 
 class SkippedSampleError(Exception):
@@ -132,6 +139,40 @@ class HardwayTestSource:
         except (OSError, ValueError) as e:
             raise SkippedSampleError(f"{vid}: {e}") from e
         return {"frame": frame, "waveform": wav, "id": vid}
+
+
+class PerFrameEvalSource:
+    """Whole-video eval: every frame of `videos/<id>.mp4` (OpenCV), BGR ->
+    RGB, resized and centre-cropped by `host_eval_clip`, with the clip's
+    prepared `audio/<id>.wav`."""
+
+    def __init__(self, root: str | Path, ids: list[str], cfg: DataConfig):
+        self.root = Path(root)
+        self.ids = ids
+        self.cfg = cfg
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def load(self, idx: int, rng=None) -> dict[str, Any]:
+        import cv2
+
+        vid = self.ids[idx]
+        cap = cv2.VideoCapture(str(self.root / "videos" / f"{vid}.mp4"))
+        frames = []
+        ok, img = cap.read()
+        while ok:
+            frames.append(img[:, :, ::-1])  # BGR -> RGB
+            ok, img = cap.read()
+        cap.release()
+        if len(frames) <= 1:
+            raise SkippedSampleError(f"{vid}: undecodable or single-frame video")
+        clip = host_eval_clip(np.asarray(frames), self.cfg.image_size)
+        try:
+            wav = load_prepared_wav(self.root / "audio" / f"{vid}.wav", self.cfg)
+        except (OSError, ValueError) as e:
+            raise SkippedSampleError(f"{vid}: {e}") from e
+        return {"clip": clip, "waveform": wav, "id": vid}
 
 
 class SyntheticSource:

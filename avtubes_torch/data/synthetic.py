@@ -8,8 +8,8 @@ metadata CSVs/XMLs) with deterministic random content:
   root/audio/<id>.wav               root/anno/<id>.xml (whole-video GT)
   root/metadata/flickr_train5k.csv, flickr_test_hardway.csv, ...
 
-The `.mp4` videos of the JAX package's `mp4=True` need a video encoder and
-are not written.
+`mp4=True` also writes `root/videos/<id>.mp4` (OpenCV, `mp4v` at 10 fps)
+for the per-frame whole-video test (`data/pipeline.py::PerFrameEvalSource`).
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ _XML = """<annotation><object>
 
 def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 16,
                             samplerate: int = 22050, seconds: int = 2,
-                            image_hw: tuple[int, int] = (256, 320), seed: int = 0) -> list[str]:
+                            image_hw: tuple[int, int] = (256, 320), seed: int = 0,
+                            mp4: bool = False) -> list[str]:
     """Create a tiny but structurally complete dataset; returns the video ids.
     The same arguments write the same files as the JAX package's."""
     from PIL import Image
@@ -44,10 +45,20 @@ def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 1
         vdir = root / "videos" / vid
         vdir.mkdir(parents=True, exist_ok=True)
         base = rng.randint(0, 200, (h, w, 3)).astype(np.uint8)
+        clip = []
         for i in range(frames):
             img = np.clip(base.astype(np.int32) + rng.randint(-20, 20), 0, 255).astype(np.uint8)
+            clip.append(img)
             Image.fromarray(img).save(vdir / f"{i}.jpg", quality=90)
         Image.fromarray(base).save(root / "frames" / f"{vid}.jpg", quality=90)
+        if mp4:
+            import cv2
+
+            writer = cv2.VideoWriter(str(root / "videos" / f"{vid}.mp4"),
+                                     cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+            for img in clip:
+                writer.write(img[:, :, ::-1])  # RGB -> BGR
+            writer.release()
         (root / "audio").mkdir(exist_ok=True)
         t = np.arange(samplerate * seconds) / samplerate
         freq = rng.uniform(100, 1000)

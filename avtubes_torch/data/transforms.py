@@ -17,13 +17,20 @@ The JAX package draws the augmentation from a threefry key inside the
 program.  Threefry and torch's Philox give different numbers, so here the
 draws are an explicit argument (`AugmentDraws`), made by
 `sample_augment_draws` from a `torch.Generator` with the JAX package's
-distributions — or, in the tests, from the JAX key itself.
+distributions — or, in the tests, from the JAX key itself.  A batch's draws
+are made on the host and reach the card in ONE pinned, non-blocking copy
+(`to_device_in_one_copy`), with the sample groups of the colour jitter; every
+decision that reads a draw (which jitter op a sample takes where) reads the
+host copy, so the augmentation never waits for the card's queue to drain.
+The constants (ImageNet statistics, grey weights, bicubic weight matrices)
+are made once per device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -133,10 +140,40 @@ def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
     return _normalize01(x)
 
 
+def to_device_in_one_copy(tensors: Sequence[torch.Tensor],
+                          device: str | torch.device) -> list[torch.Tensor]:
+    """Host tensors -> the same tensors on `device`, through one copy.
+
+    Their bytes are packed into one buffer (8-byte aligned slots; pinned
+    when `device` is a card), which is copied with ``non_blocking=True``, and
+    each tensor comes back as a view of its slot with its own dtype and
+    shape: bit-exact, since bytes are moved and nothing is converted.  On
+    the CPU the views are of the host buffer."""
+    device = torch.device(device)
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    sizes = [t.numel() * t.element_size() for t in flat]
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 8) * 8
+    buf = torch.empty(max(total, 8), dtype=torch.uint8, pin_memory=device.type == "cuda")
+    for t, off, n in zip(flat, offsets, sizes):
+        buf[off:off + n].copy_(t.view(torch.uint8))
+    moved = buf.to(device, non_blocking=True)
+    return [moved[off:off + n].view(t.dtype).view(src.shape)
+            for src, t, off, n in zip(tensors, flat, offsets, sizes)]
+
+
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) float32 (3,) on `device`; made once, shared."""
+    return (torch.as_tensor(IMAGENET_MEAN, device=device),
+            torch.as_tensor(IMAGENET_STD, device=device))
+
+
 def _normalize01(x: torch.Tensor) -> torch.Tensor:
     """[0,1] float32 (..., 3) -> ImageNet-normalized."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
 
 
@@ -197,6 +234,12 @@ def cubic_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def _cubic_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`cubic_weight_matrix` on `device`; made once, shared."""
+    return torch.tensor(cubic_weight_matrix(in_size, out_size), device=device)
+
+
 def resize_bicubic(clip: torch.Tensor, size: int) -> torch.Tensor:
     """(..., H, W, C) -> (..., size, size, C) as `jax.image.resize(...,
     method="cubic")` computes it: one weight matrix per axis, applied as a
@@ -205,17 +248,19 @@ def resize_bicubic(clip: torch.Tensor, size: int) -> torch.Tensor:
     h, w = clip.shape[-3], clip.shape[-2]
     x = clip
     if h != size:
-        wh = torch.tensor(cubic_weight_matrix(h, size), device=clip.device)
-        x = torch.einsum("...hwc,hy->...ywc", x, wh)
+        x = torch.einsum("...hwc,hy->...ywc", x, _cubic_weights(h, size, clip.device))
     if w != size:
-        ww = torch.tensor(cubic_weight_matrix(w, size), device=clip.device)
-        x = torch.einsum("...ywc,wx->...yxc", x, ww)
+        x = torch.einsum("...ywc,wx->...yxc", x, _cubic_weights(w, size, clip.device))
     return x
 
 
+@functools.lru_cache(maxsize=8)
+def _grey_weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor([0.299, 0.587, 0.114], dtype=dtype, device=device)
+
+
 def _grayscale(x: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=x.dtype, device=x.device)
-    return (x * w).sum(-1, keepdim=True)
+    return (x * _grey_weights(x.dtype, x.device)).sum(-1, keepdim=True)
 
 
 def _blend(a: torch.Tensor, b, factor: torch.Tensor) -> torch.Tensor:
@@ -274,6 +319,45 @@ def _jitter_op(op: int, x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     return _hue_shift(x, f[..., 0])
 
 
+def jitter_groups(order, n: int) -> tuple[list[list[tuple[int, int | None]]],
+                                          list[torch.Tensor]]:
+    """The host half of `color_jitter`: `order` (a static permutation of
+    (0, 1, 2, 3), or an (n, 4) tensor with each sample's own) read on the
+    host.  Returns (steps, indices): at each of the four positions a list of
+    (op, k), `indices[k]` being the samples that take `op` there, or
+    [(op, None)] when every sample takes it."""
+    order = torch.as_tensor(order, dtype=torch.long, device="cpu").expand(n, 4)
+    steps, indices = [], []
+    for step in range(4):
+        ops = order[:, step]
+        if bool((ops == ops[0]).all()):
+            steps.append([(int(ops[0]), None)])
+            continue
+        groups = []
+        for op in torch.unique(ops).tolist():
+            groups.append((op, len(indices)))
+            indices.append(torch.nonzero(ops == op).flatten())
+        steps.append(groups)
+    return steps, indices
+
+
+def _apply_jitter(x: torch.Tensor, factors: Sequence[torch.Tensor],
+                  steps: list[list[tuple[int, int | None]]],
+                  indices: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The four positions of `jitter_groups`, each group running its op
+    once; factors and indices already on `x`'s device."""
+    for groups in steps:
+        if groups[0][1] is None:
+            op = groups[0][0]
+            x = _jitter_op(op, x, factors[op])
+            continue
+        out = torch.empty_like(x)
+        for op, k in groups:
+            out[indices[k]] = _jitter_op(op, x[indices[k]], factors[op][indices[k]])
+        x = out
+    return x
+
+
 def color_jitter(clip01: torch.Tensor, factors: tuple[torch.Tensor, ...],
                  order) -> torch.Tensor:
     """torchvision-semantics colour jitter of clips (n, T, H, W, C) in [0,1].
@@ -283,22 +367,12 @@ def color_jitter(clip01: torch.Tensor, factors: tuple[torch.Tensor, ...],
     (n, 4) CPU tensor with each sample's own.  At each of the four positions
     the samples are grouped by the op they take there and each group runs
     its op once: the values of the JAX package's vmapped switch, without
-    computing the three branches it throws away.
+    computing the three branches it throws away.  The grouping is made on
+    the host; factors and group indices reach the device in one copy.
     """
-    n = clip01.shape[0]
-    order = torch.as_tensor(order, dtype=torch.long).expand(n, 4)
-    x = clip01
-    for step in range(4):
-        ops = order[:, step]
-        if bool((ops == ops[0]).all()):
-            x = _jitter_op(int(ops[0]), x, factors[int(ops[0])])
-            continue
-        out = torch.empty_like(x)
-        for op in torch.unique(ops).tolist():
-            idx = torch.nonzero(ops == op).flatten().to(x.device)
-            out[idx] = _jitter_op(op, x[idx], factors[op].to(x.device)[idx])
-        x = out
-    return x
+    steps, indices = jitter_groups(order, clip01.shape[0])
+    moved = to_device_in_one_copy([*factors, *indices], clip01.device)
+    return _apply_jitter(clip01, moved[:4], steps, moved[4:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,12 +429,18 @@ def augment_train_batch(clips_uint8: torch.Tensor, draws: AugmentDraws,
       view2 = RandomCrop(0.7 size) -> ColorJitter(.5, .5, .5, .5) in each
               sample's order -> bicubic resize to size -> random hflip, built
               from view1.
+    The draws and the jitter's sample groups reach the batch's device in one
+    pinned, non-blocking copy (`to_device_in_one_copy`).
     """
     crop_size = int(image_size * CROP_FRACTION)
-    v1 = random_hflip(clips_uint8.to(torch.float32) / 255.0, draws.flip1)
-    v2 = random_crop_clip(v1, draws.top, draws.left, crop_size)
-    v2 = color_jitter(v2, (draws.brightness, draws.contrast, draws.saturation, draws.hue),
-                      draws.order)
+    steps, indices = jitter_groups(draws.order, clips_uint8.shape[0])
+    moved = to_device_in_one_copy(
+        [draws.flip1, draws.top, draws.left, draws.brightness, draws.contrast,
+         draws.saturation, draws.hue, draws.flip2, *indices], clips_uint8.device)
+    flip1, top, left, *factors, flip2 = moved[:8]
+    v1 = random_hflip(clips_uint8.to(torch.float32) / 255.0, flip1)
+    v2 = random_crop_clip(v1, top, left, crop_size)
+    v2 = _apply_jitter(v2, factors, steps, moved[8:])
     v2 = resize_bicubic(v2, image_size)
-    v2 = random_hflip(torch.clamp(v2, 0.0, 1.0), draws.flip2)
+    v2 = random_hflip(torch.clamp(v2, 0.0, 1.0), flip2)
     return _normalize01(v1), _normalize01(v2)

@@ -10,6 +10,12 @@ Shape conventions (NHWC at the interface, like the JAX package):
 
 Train/eval is the module's own mode (`model.train()` / `model.eval()`), the
 PyTorch idiom, where the JAX methods take a `train` flag.
+
+`compute_dtype` ('float32' or 'bfloat16', the JAX package's `dtype`) is the
+backbones' (`models/resnet2d.py`): the features come out in it, the audio
+tower's global max pool runs in it, and the hard-way head casts both to
+float32, so every `HardwayOutput` field is float32 whatever the dtype.  The
+parameters and running statistics are float32 in both.
 """
 
 from __future__ import annotations
@@ -18,16 +24,20 @@ import torch
 from torch import nn
 
 from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_head
-from avtubes_torch.models.resnet2d import ResNet2D
+from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 
 
 class AVENet(nn.Module):
     def __init__(self, hardway: HardwayConfig = HardwayConfig(),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: str | torch.dtype = torch.float32):
         super().__init__()
         self.hardway = hardway
-        self.imgnet = ResNet2D(modal="vision", generator=generator)
-        self.audnet = ResNet2D(modal="audio", generator=generator)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        self.imgnet = ResNet2D(modal="vision", generator=generator,
+                               compute_dtype=self.compute_dtype)
+        self.audnet = ResNet2D(modal="audio", generator=generator,
+                               compute_dtype=self.compute_dtype)
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/16, W/16, 512) spatial features."""

@@ -22,9 +22,21 @@ Sub-modules are named after the original PyTorch model's `state_dict`
 `core/convert.py` is a mechanical rename.
 
 Layout: the public interface is NHWC like the JAX package, (B, H, W, C) in
-and (B, H/16, W/16, 512) out.  Inside, tensors are NCHW with
-`memory_format=channels_last`, which has NHWC strides: the permutes at both
-ends are views, not copies, and cuDNN gets its preferred layout.
+and (B, H/16, W/16, 512) out.  Inside, activations and conv weights are NCHW
+with `memory_format=channels_last` (`ResNet2D.memory_format`), which has NHWC
+strides: the permutes at both ends are views, not copies, and cuDNN gets its
+preferred layout.  On an H100 it is as fast as plain NCHW in float32 and
+faster in TF32 and bfloat16 (`PERF.md` §7), so it is the only layout.
+
+Compute dtype (`compute_dtype`, the JAX package's `dtype`): the input is
+cast to it and every convolution, BatchNorm normalisation, ReLU, max-pool
+and residual add runs in it, while the parameters, their gradients and the
+BatchNorm running statistics stay float32.  A convolution casts its float32
+weight to the input's dtype per call (flax's `dtype=`); `nn.BatchNorm2d` on
+a bfloat16 input with float32 weights computes its batch statistics in
+float32 and advances the running variance with the unbiased n/(n-1) value,
+as `avtubes/models/norm.py` does.  No autocast region is involved, so
+nothing outside the backbone changes dtype.
 """
 
 from __future__ import annotations
@@ -36,12 +48,38 @@ import torch
 from torch import nn
 
 STEM_CHANNELS = {"vision": 3, "audio": 1, "flow": 6}
+#: the compute dtypes of the backbones, by their flag names
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: stem attribute (= state_dict) name per modality
 STEM_NAMES = {"vision": "conv1", "audio": "conv1_a", "flow": "conv1_flow"}
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
+def compute_dtype_of(name: str | torch.dtype) -> torch.dtype:
+    """'float32' / 'bfloat16' (or the torch dtype itself) -> the torch dtype;
+    any other value raises."""
+    if isinstance(name, torch.dtype):
+        if name in COMPUTE_DTYPES.values():
+            return name
+    elif name in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[name]
+    raise ValueError(f"compute dtype must be one of {tuple(COMPUTE_DTYPES)}, got {name!r}")
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """torch.bfloat16 -> 'bfloat16'."""
+    return str(dtype).removeprefix("torch.")
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` that runs in its input's dtype: the (float32) weight is
+    cast per call, so the parameter and its gradient stay float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
 def _bn(features: int) -> nn.BatchNorm2d:
@@ -73,20 +111,25 @@ class ResNet2D(nn.Module):
     """Headless dual-modal ResNet feature extractor.
 
     Input (B, H, W, C_modal) -> output (B, H/16, W/16, 512), both NHWC — the
-    /16 (not /32) is the stride-1 layer4.  `generator` seeds the init; None
-    uses torch's global generator.
+    /16 (not /32) is the stride-1 layer4 — in `compute_dtype`.  `generator`
+    seeds the init; None uses torch's global generator.
     """
+
+    #: the layout of activations and conv weights inside
+    memory_format = torch.channels_last
 
     def __init__(self, modal: str = "vision",
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  stage_filters: Sequence[int] = (64, 128, 256, 512),
                  stage_strides: Sequence[int] = (1, 2, 2, 1),
                  bn_scale_noise: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: str | torch.dtype = torch.float32):
         super().__init__()
         if modal not in STEM_CHANNELS:
             raise ValueError(f"modal must be one of {tuple(STEM_CHANNELS)}, got {modal!r}")
         self.modal = modal
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         setattr(self, STEM_NAMES[modal], _conv(STEM_CHANNELS[modal], 64, 7, 2, 3))
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -100,6 +143,7 @@ class ResNet2D(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.num_layers = len(stage_sizes)
         self.reset_parameters(bn_scale_noise, generator)
+        self.to(memory_format=self.memory_format)   # the conv weights' layout
 
     @torch.no_grad()
     def reset_parameters(self, bn_scale_noise: bool = True,
@@ -124,8 +168,8 @@ class ResNet2D(nn.Module):
                 f"modal={self.modal!r} expects {expected_c} input channels "
                 f"(NHWC), got {tuple(x.shape)}")
         stem = getattr(self, STEM_NAMES[self.modal])
-        x = x.to(stem.weight.dtype).permute(0, 3, 1, 2)   # NHWC -> NCHW view
-        x = x.contiguous(memory_format=torch.channels_last)
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view
+        x = x.contiguous(memory_format=self.memory_format)
         x = self.maxpool(torch.relu(self.bn1(stem(x))))
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i + 1}")(x)

@@ -1,19 +1,24 @@
 """The flagship 16-frame hard-way trainer (PyTorch).
 
 Counterpart of `avtubes/train/hardway.py`.  An epoch is {train, hard-way
-test, checkpoint}:
+test, per-frame test, checkpoint}:
 
   host threads decode JPEG clips + WAVs (or make synthetic ones) ->
   device prefetch (pinned memory, side stream) ->
   one eager step per batch on the card: log-spectrogram (K1), two-view
-  augmentation, both backbones, hard-way head, 4-term loss, Adam update.
+  augmentation, both backbones in `--compute_dtype` (bfloat16 by default,
+  as in the JAX package), hard-way head in float32, 4-term loss, Adam
+  update.
 
-Single process, one device.  What the JAX package has and this port does not
-yet, and which raises rather than run something else: bf16 compute
-(`--compute_dtype bfloat16`, the flag's default, as in the JAX package),
-`--remat`, `--group_steps > 1`, more than one process, and the per-frame
-test that the JAX package's epoch adds where `--gt_path` and the test videos
-`videos/<id>.mp4` are given (it decodes them with a video library).
+The per-frame whole-video test runs, as in the JAX package, when
+`--gt_path` is given and `<data_path>/videos/` exists: every video
+`videos/<id>.mp4` of the test split is decoded (`PerFrameEvalSource`) and
+scored frame by frame; when every video is skipped its three metrics are
+NaN.
+
+Single process, one device.  What the JAX package has and this port does
+not yet, and which raises rather than run something else: `--remat`,
+`--group_steps > 1` and more than one process.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from avtubes_torch.data.pipeline import (
     BatchLoader,
     ClipTrainSource,
     HardwayTestSource,
+    PerFrameEvalSource,
     SyntheticSource,
     device_prefetch,
     make_hardway_loader,
@@ -46,7 +52,12 @@ from avtubes_torch.data.pipeline import (
 from avtubes_torch.data.spectrogram import SpectrogramConfig
 from avtubes_torch.data.transforms import sample_augment_draws
 from avtubes_torch.models.avenet import AVENet
-from avtubes_torch.train.evaluate import evaluate_hardway, make_gt_lookup_auto
+from avtubes_torch.models.resnet2d import COMPUTE_DTYPES
+from avtubes_torch.train.evaluate import (
+    evaluate_hardway,
+    evaluate_perframe,
+    make_gt_lookup_auto,
+)
 from avtubes_torch.train.state import create_train_state
 from avtubes_torch.train.steps import hardway_fused_train_step
 from avtubes_torch.utils.logging import MetricLogger
@@ -57,14 +68,12 @@ HARDWAY_TAG = "hardway16"
 def check_supported(cfg: ExperimentConfig) -> None:
     """Raise for a configuration whose code is not ported, naming the
     ROADMAP item it waits for."""
-    if cfg.train.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {cfg.train.compute_dtype}: only float32 is ported to "
-            "avtubes_torch; the bf16 knob is ROADMAP.md Queue 1 item 6 (pass "
-            "--compute_dtype float32)")
+    if cfg.train.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"--compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                         f"got {cfg.train.compute_dtype!r}")
     if cfg.train.remat:
         raise NotImplementedError(
-            "--remat is not ported to avtubes_torch (ROADMAP.md Queue 1 item 6: "
+            "--remat is not ported to avtubes_torch (ROADMAP.md Queue 1 item 12: "
             "torch.utils.checkpoint re-runs BatchNorm in training mode)")
     if cfg.train.group_steps > 1:
         raise NotImplementedError(
@@ -79,9 +88,11 @@ def check_supported(cfg: ExperimentConfig) -> None:
 
 
 def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None) -> AVENet:
-    """AVENet of the configuration (float32; see `check_supported`)."""
+    """AVENet of the configuration, its backbones in `--compute_dtype` (the
+    parameters float32 either way; see `check_supported`)."""
     check_supported(cfg)
-    return AVENet(hardway=cfg.hardway, generator=generator)
+    return AVENet(hardway=cfg.hardway, generator=generator,
+                  compute_dtype=cfg.train.compute_dtype)
 
 
 def build_sources(cfg: ExperimentConfig):
@@ -105,12 +116,6 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     evaluation's and the loader's skip count."""
     d, o = cfg.data, cfg.optim
     check_supported(cfg)
-    if do_eval and not d.synthetic and d.gt_path and _test_videos(d):
-        # the JAX package's epoch then also runs the per-frame test on them
-        raise NotImplementedError(
-            "the per-frame test decodes videos/<id>.mp4 (PerFrameEvalSource), which "
-            "needs a video decoder and is not ported to avtubes_torch (ROADMAP.md "
-            "Queue 1 item 5, still open); drop --gt_path to train without it")
     device = resolve_device(cfg.train.device)
     if cfg.train.negative_pool == "device":
         # the per-device pool of the JAX package's formula on one device:
@@ -143,7 +148,10 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     last_metrics: dict = {}
     watch = cfg.train.watch_every > 0
     if do_eval:
+        # epoch-invariant: the GT lookups are built once
         gt_lookup = _synthetic_gt_lookup() if d.synthetic else make_gt_lookup_auto(d)
+        pf_gt_lookup = (make_gt_lookup_auto(d, per_frame=True)
+                        if not d.synthetic and d.gt_path else None)
     for epoch in range(start_epoch, o.epochs):
         # the epoch's augmentation draws, made on the host
         gen = torch.Generator().manual_seed((cfg.train.seed + 1) * 1_000_003 + epoch)
@@ -201,6 +209,16 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
             last_metrics.update(eval_metrics)
             logger.log(step=state.step, epoch=epoch, **eval_metrics)
 
+            # the per-frame whole-video test, where its videos and GT are given
+            video_root = Path(d.data_path)
+            if pf_gt_lookup is not None and (video_root / "videos").exists():
+                pf_src = PerFrameEvalSource(video_root,
+                                            load_split(d.metadata_dir, d.testset, "test"), d)
+                pf = evaluate_perframe(state.model, pf_src, d, spec_cfg, pf_gt_lookup,
+                                       record=cfg.train.record_qualitative, epoch=epoch)
+                last_metrics.update(pf)
+                logger.log(step=state.step, epoch=epoch, **pf)
+
         if (epoch + 1) % cfg.train.checkpoint_every_epochs == 0:
             save_checkpoint(cfg.train.summaries_dir, tag, epoch, state)
 
@@ -208,11 +226,6 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     guard.restore()
     last_metrics["skipped_samples"] = loader.skipped
     return last_metrics
-
-
-def _test_videos(d) -> bool:
-    """Whether the whole-video test set (`videos/<id>.mp4`) is there."""
-    return any((Path(d.data_path) / "videos").glob("*.mp4"))
 
 
 def _synthetic_gt_lookup():

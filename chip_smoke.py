@@ -27,12 +27,16 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               makes them (the host's launch rate is in it), `kernel_ms` over
               the same calls queued behind a sleeping stream (it is not).
   4. serve    a seeded full-width AVENet localizer (two ResNet-18, 224x224
-              frames, 257x431 spectrogram, float32) is exported, loaded by
+              frames, 257x431 spectrogram) is exported twice, with bfloat16
+              backbones (the export's default) and in float32, loaded by
               `ArtifactRunner` on the card, warmed, and answers concurrent
-              requests through `MicroBatcher` and, where PIL is installed,
-              through the HTTP server.  Served results are held against the
-              same pipeline run with the plain versions; both kernels'
-              launch counters must have risen during the served requests.
+              requests through `MicroBatcher` in each dtype and, where PIL is
+              installed, through the HTTP server.  The bf16 answers are held
+              against the float32 ones to the bars of tests/test_bf16.py
+              (heatmap correlation, mask IoU, live logits); the float32
+              answers against the same pipeline run with the plain versions;
+              both kernels' launch counters must have risen during each
+              dtype's served requests.
   5. flow     the FlowNetLite pretrainer at full width (224x224 frames,
               batch 20, 28x28x96 features, an 81-channel cost volume):
               `avtubes_torch.cli.flow --train_flow --synthetic` takes a few
@@ -43,16 +47,20 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               known shift.  Step time by CUDA events and K3's share of it.
   6. train    the flagship hard-way trainer at the recipe's full width (two
               ResNet-18 with layer4 at stride 1, 20 clips x 16 frames x two
-              views at 224x224, 257x431 spectrograms, float32, TF32 off):
-              `avtubes_torch.cli.train_hardway --synthetic` takes a few steps
-              and evaluates on the card (finite losses, cIoU and AUC in [0,1],
-              one checkpoint; K1 launched once a step and once an eval batch,
-              K2 once an eval batch), the same steps with the plain versions
-              of K1 and K2 give the same loss curve and masks, eight steps on
-              one batch lower the loss, and `cli.export_model` turns the
-              checkpoint into an artifact that validates with zero deltas.
-              Step time by CUDA events and on the host's clock, the loader's
-              wait, peak memory, launches a step and the device's idle share
+              views at 224x224, 257x431 spectrograms, TF32 off):
+              `avtubes_torch.cli.train_hardway --synthetic` at its default
+              bfloat16 takes a few steps and evaluates on the card (finite
+              losses, cIoU and AUC in [0,1], one checkpoint whose parameters
+              and statistics are float32; K1 launched once a step and once an
+              eval batch, K2 once an eval batch), `cli.export_model` turns the
+              checkpoint into a bf16 artifact that validates with zero
+              deltas, a bf16 step's BatchNorm running variance equals its
+              float32 hand computation with n/(n-1), the same float32 steps
+              with the plain versions of K1 and K2 give the same loss curve
+              and masks, and eight bf16 steps on one batch lower the loss.
+              Step time by CUDA events and on the host's clock in both dtypes,
+              the loader's wait, peak memory, launches a step, layout
+              conversions and the device's idle share
               (`scripts/profile_torch_train_step.py`).
 
 Then one `{"kernels": [...]}` line (per kernel: launches on its main
@@ -111,6 +119,12 @@ MASK_FLIPS = 16       # per map: resize ulps right at the median threshold
 CORR_ATOL = 1e-5      # K3 vs plain, value and gradients, unit-scale inputs: fp32 sums in another order
 FLOW_LOSS_RTOL = 1e-3  # loss curve, kernel vs plain cost volume: sum order, then Adam steps on it
 TRAIN_LOSS_RTOL = 1e-3  # loss curve, K1 and K2 vs their plain versions: sum order, then Adam steps
+# bf16 backbones vs float32 on the same weights: the bars of tests/test_bf16.py
+BF16_PEARSON = 0.999    # heatmap correlation, per sample
+BF16_IOU = 0.95         # mask IoU, per sample
+BF16_LOGIT_ATOL = 0.15  # live logits (> -100): bf16's ~3 significant digits
+BN_HAND_RTOL = 1e-4     # a bf16 step's running statistics vs their float64 hand computation:
+#                         float32 sums over 62,720 values a channel
 
 # the flow pretrainer's recipe shapes
 FLOW_BATCH = 20
@@ -232,7 +246,12 @@ def phase_device() -> tuple[torch.device, str]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = device_report()
-    emit("device", kind=torch.cuda.get_device_name(0),
+    try:   # the per-frame test decodes .mp4 with OpenCV: is it on this machine?
+        import cv2
+        opencv = cv2.__version__
+    except ImportError:
+        opencv = None
+    emit("device", kind=torch.cuda.get_device_name(0), opencv=opencv,
          count=torch.cuda.device_count(), nvidia_smi=report,
          torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -767,27 +786,11 @@ def serve_http(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray,
             "http_batch_hist": stats["batch_hist"], **{f"http_{k}": v for k, v in out.items()}}
 
 
-def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
-    cfg = SpectrogramConfig()
-    gen = torch.Generator().manual_seed(SEED)
-    model = AVENet(generator=gen)
-    # running statistics of a trained net are not the identity: perturb them
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.normal_(0.0, 0.05, generator=gen)
-                m.running_var.uniform_(0.8, 1.2, generator=gen)
-    blob = export_localizer(model, cfg, image_size=IMAGE_SIZE,
-                            audio_transport="float32",
-                            extra_meta={"seed": SEED, "source": "chip_smoke"})
-    t0 = time.monotonic()
-    runner = ArtifactRunner(blob, max_batch=MAX_BATCH)   # default device: the card
-    require(runner.device.type == "cuda", runner.device)
-    runner.warmup()
-    warm_s = time.monotonic() - t0
-    frames, waves = make_requests(cfg)
-
-    # ---- the main path: concurrent requests through the micro-batcher
+def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray, dict, float, dict[str, int]]:
+    """The main path: concurrent requests through the micro-batcher, with
+    K1's and K2's counts set to 0 just before and read just after.  Returns
+    (masks, heatmaps, batcher stats, wall seconds, launches)."""
     k1.log_spectrogram_cuda.launches = 0
     k2.median_mask_cuda.launches = 0
     batcher = MicroBatcher(runner, window_ms=5.0)
@@ -812,8 +815,75 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
     check_outputs(masks, heat, N_REQUESTS)
     require(float(heat.std()) > 0, "heatmaps are constant")
     require(0.3 < float(masks.mean()) < 0.7, masks.mean())  # a median split
+    return masks, heat, stats, wall, launches
+
+
+def bf16_vs_fp32(masks: np.ndarray, heat: np.ndarray, ref_masks: np.ndarray,
+                 ref_heat: np.ndarray, logits: np.ndarray, ref_logits: np.ndarray) -> dict:
+    """The bf16 pipeline against the float32 one on the same weights, to the
+    bars of tests/test_bf16.py."""
+    r = [float(np.corrcoef(heat[i].ravel(), ref_heat[i].ravel())[0, 1])
+         for i in range(len(heat))]
+    iou = (masks * ref_masks).sum(axis=(1, 2)) / ((masks + ref_masks) > 0).sum(axis=(1, 2))
+    live = ref_logits > -100
+    logit_diff = float(np.abs(logits[live] - ref_logits[live]).max())
+    require(min(r) >= BF16_PEARSON, f"bf16 vs fp32 heatmap correlation {min(r)}")
+    require(float(iou.min()) >= BF16_IOU, f"bf16 vs fp32 mask IoU {iou.min()}")
+    require(logit_diff <= BF16_LOGIT_ATOL, f"bf16 vs fp32 live logits {logit_diff}")
+    return {"heatmap_pearson_min": min(r), "mask_iou_min": float(iou.min()),
+            "live_logit_max_abs_diff": logit_diff,
+            "heatmap_max_abs_diff": float(np.abs(heat - ref_heat).max())}
+
+
+def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
+    """Returns K1's and K2's launches on the served requests, by dtype."""
+    cfg = SpectrogramConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    model = AVENet(generator=gen, compute_dtype="float32")
+    # running statistics of a trained net are not the identity: perturb them
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.05, generator=gen)
+                m.running_var.uniform_(0.8, 1.2, generator=gen)
+    model_bf16 = AVENet(compute_dtype="bfloat16")
+    model_bf16.load_state_dict(model.state_dict(), strict=True)
+    blob = export_localizer(model, cfg, image_size=IMAGE_SIZE,
+                            audio_transport="float32",
+                            extra_meta={"seed": SEED, "source": "chip_smoke"})
+    blob_bf16 = export_localizer(model_bf16, cfg, image_size=IMAGE_SIZE,
+                                 audio_transport="float32",
+                                 extra_meta={"seed": SEED, "source": "chip_smoke"})
+    # as `cli/serve.py` does: the autotuner on, fed by each bucket's warmup
+    torch.backends.cudnn.benchmark = True
+    t0 = time.monotonic()
+    runner = ArtifactRunner(blob, max_batch=MAX_BATCH)   # default device: the card
+    require(runner.device.type == "cuda", runner.device)
+    runner.warmup()
+    warm_s = time.monotonic() - t0
+    runner_bf16 = ArtifactRunner(blob_bf16, max_batch=MAX_BATCH)
+    require(runner_bf16.meta["compute_dtype"] == "bfloat16"
+            and runner_bf16.pipeline.model.compute_dtype == torch.bfloat16, runner_bf16.meta)
+    runner_bf16.warmup()
+    frames, waves = make_requests(cfg)
+
+    # ---- the main path in bf16 (the export's default), then in float32
+    masks_bf16, heat_bf16, stats_bf16, wall_bf16, launches_bf16 = serve_requests(
+        runner_bf16, frames, waves)
+    masks, heat, stats, wall, launches = serve_requests(runner, frames, waves)
+    f8 = torch.from_numpy(frames[:MAX_BATCH]).to(dev)
+    w8 = torch.from_numpy(waves[:MAX_BATCH]).to(dev)
+    with torch.inference_mode():
+        nf = normalize_imagenet(f8)
+        spec = log_spectrogram(w8, cfg)[..., None]
+        out32 = runner.pipeline.model(nf, spec)
+        out16 = runner_bf16.pipeline.model(nf, spec)
+    require(all(t.dtype == torch.float32 for t in out16), [t.dtype for t in out16])
+    vs_fp32 = bf16_vs_fp32(masks_bf16, heat_bf16, masks, heat,
+                           out16.logits.float().cpu().numpy(), out32.logits.cpu().numpy())
 
     # ---- the same pipeline with the plain versions, on the card
+    before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
     plain = LocalizerPipeline(runner.pipeline.model, cfg, IMAGE_SIZE, impl="plain")
     ref_m, ref_h = [], []
     for i in range(0, N_REQUESTS, MAX_BATCH):
@@ -823,9 +893,7 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
         ref_h.append(h.cpu().numpy())
     vs_plain = compare(masks, heat, np.concatenate(ref_m), np.concatenate(ref_h),
                        "served vs plain pipeline")
-    launches_after_plain = (k1.log_spectrogram_cuda.launches,
-                            k2.median_mask_cuda.launches)
-    require(launches_after_plain == (launches["stft"], launches["median_select"]),
+    require((k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches) == before_plain,
             "impl='plain' launched a kernel")
 
     # ---- a sample's answer does not depend on its co-batched neighbours
@@ -840,12 +908,8 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
     require(nb_heat <= 1e-5 and nb_flips <= MASK_FLIPS, (nb_heat, nb_flips))
 
     # ---- where the time goes at batch 8 (CUDA events, stage by stage)
-    f8 = torch.from_numpy(frames[:MAX_BATCH]).to(dev)
-    w8 = torch.from_numpy(waves[:MAX_BATCH]).to(dev)
     net = runner.pipeline.model
     with torch.inference_mode():
-        nf = normalize_imagenet(f8)
-        spec = log_spectrogram(w8, cfg)[..., None]
         hm = net(nf, spec).heatmap
         stage_ms = {
             "normalize_imagenet": cuda_ms(lambda: normalize_imagenet(f8)),
@@ -853,6 +917,10 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
             "avenet_forward": cuda_ms(lambda: net(nf, spec)),
             "heatmap_to_mask_K2_and_resize": cuda_ms(lambda: heatmap_to_mask_batch(hm)),
             "pipeline_total": cuda_ms(lambda: runner.pipeline(f8, w8)),
+        }
+        stage_ms_bf16 = {
+            "avenet_forward": cuda_ms(lambda: runner_bf16.pipeline.model(nf, spec)),
+            "pipeline_total": cuda_ms(lambda: runner_bf16.pipeline(f8, w8)),
         }
         # the two kernels' stages on the device alone (see `queued_ms`)
         stage_kernel_ms = {
@@ -870,15 +938,18 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, int]:
         run_ms[str(b)] = (time.monotonic() - t0) * 1e3 / 10
 
     http = serve_http(runner, frames, waves, cfg.samplerate)
+    torch.backends.cudnn.benchmark = False     # the other phases run without it
     emit("serve", card=report, requests=N_REQUESTS, clients=N_CLIENTS,
          artifact_bytes=len(blob), load_and_warmup_s=round(warm_s, 2),
+         requests_per_s_bf16=N_REQUESTS / wall_bf16, batch_hist_bf16=stats_bf16["batch_hist"],
+         launches_bf16=launches_bf16, bf16_vs_fp32=vs_fp32, stage_ms_batch8_bf16=stage_ms_bf16,
          requests_per_s=N_REQUESTS / wall, batch_hist=stats["batch_hist"],
          launches=launches, vs_plain=vs_plain,
          neighbour_heatmap_max_abs_diff=nb_heat, neighbour_max_flips=nb_flips,
          stage_ms_batch8=stage_ms, stage_kernel_ms_batch8=stage_kernel_ms,
          runner_run_ms_by_bucket_host_clock=run_ms,
          peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **http)
-    return launches
+    return {"bfloat16": launches_bf16, "float32": launches}
 
 
 def read_losses(summaries_dir: str) -> list[float]:
@@ -1034,6 +1105,89 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
     return launches
 
 
+def bn_hand_check(state, batch, cfg: SpectrogramConfig) -> dict:
+    """One bf16 step on the card with the image tower's last BatchNorm
+    watched: its running statistics must be two EMA steps (clean view, then
+    augmented) of the float32 batch statistics of its bf16 inputs, the
+    variance's with n/(n-1).  At the recipe's n = 62,720 values a channel
+    that factor is within the sums' rounding, so the same layer is also fed
+    one small bf16 batch (n = 18), where n/(n-1) is 6 %.  Returns the largest
+    relative errors."""
+    import copy
+
+    from avtubes_torch.train.steps import hardway_fused_train_step
+
+    def hand(bn, inputs, mean, var, unbiased=True):
+        for x in inputs:
+            xd = x.double()
+            n = xd.numel() // xd.shape[1]
+            mean = 0.9 * mean + 0.1 * xd.mean(dim=(0, 2, 3))
+            var = 0.9 * var + 0.1 * xd.var(dim=(0, 2, 3), unbiased=False) * (
+                n / (n - 1) if unbiased else 1.0)
+        return max(float(((bn.running_mean.double() - mean).abs() / var.sqrt()).max()),
+                   float(((bn.running_var.double() - var).abs() / var).max()))
+
+    bn = state.model.imgnet.layer4[1].bn2
+    small = copy.deepcopy(bn).train()
+    seen = []
+    hook = bn.register_forward_hook(lambda m, args, out: seen.append(args[0].detach()))
+    mean, var = bn.running_mean.double(), bn.running_var.double()
+    try:
+        hardway_fused_train_step(state, *batch, cfg, image_size=IMAGE_SIZE)
+    finally:
+        hook.remove()
+    require([x.dtype for x in seen] == [torch.bfloat16] * 2, [x.dtype for x in seen])
+    require(bn.running_mean.dtype == bn.running_var.dtype == torch.float32, bn.running_var.dtype)
+    step_err = hand(bn, seen, mean, var)
+    require(step_err <= BN_HAND_RTOL, f"bf16 step's BatchNorm statistics vs hand: {step_err}")
+
+    x = torch.randn(2, bn.num_features, 3, 3, device=bn.running_var.device,
+                    generator=torch.Generator(bn.running_var.device).manual_seed(SEED)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    mean, var = small.running_mean.double(), small.running_var.double()
+    out = small(x)
+    require(out.dtype == torch.bfloat16 and small.running_var.dtype == torch.float32, out.dtype)
+    small_err = hand(small, [x], mean, var)
+    biased_err = hand(small, [x], mean, var, unbiased=False)
+    require(small_err <= 1e-5 < 1e-3 <= biased_err, (small_err, biased_err))
+    return {"recipe_step": step_err, "n18_unbiased": small_err, "n18_if_biased": biased_err}
+
+
+def time_step(state, batch, cfg: SpectrogramConfig, dev: torch.device) -> dict:
+    """Step time at the recipe batch by CUDA events and on the host's clock,
+    peak memory, and the profile (`scripts/profile_torch_train_step.py`)."""
+    from avtubes_torch.train.steps import hardway_fused_train_step
+    from profile_torch_train_step import profile_train_step, step_parts_ms
+
+    clips, waves, draws = batch
+
+    def step():
+        return hardway_fused_train_step(state, clips, waves, draws, cfg, image_size=IMAGE_SIZE)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t0 = time.monotonic()
+    for _ in range(TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.monotonic() - t0) * 1e3 / TIMED_STEPS
+    profiled = profile_train_step(state, clips, waves, draws, cfg, IMAGE_SIZE, steps=1)
+    return {"train_step_ms": step_ms, "train_step_ms_host_clock": host_ms,
+            "max_memory_allocated_gib_step": peak_gib, "profile": profiled,
+            "k1_share_of_step": profiled["k1_kernel_ms_per_step"] / step_ms,
+            "step_parts_ms": step_parts_ms(state, clips, waves, draws, cfg, IMAGE_SIZE)}
+
+
 def phase_train(dev: torch.device, report: str) -> dict[str, int]:
     """Returns K1's and K2's launches on the trainer's CLI run."""
     from avtubes_torch.cli import export_model
@@ -1044,12 +1198,13 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
     from avtubes_torch.train.steps import hardway_fused_train_step
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
-    from profile_torch_train_step import profile_train_step, recipe_batch, step_parts_ms
+    from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
-        args = ["--synthetic", "--compute_dtype", "float32", "--batch_size", str(TRAIN_BATCH),
+        # the CLI's default command: bfloat16 backbones
+        args = ["--synthetic", "--batch_size", str(TRAIN_BATCH),
                 "--frame_density", str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE),
                 "--epochs", "1", "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
                 "--summaries_dir", run_dir]
@@ -1078,23 +1233,30 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
                              "median_select": TRAIN_EVAL_BATCHES}, launches)
         ckpts = sorted(n for n in os.listdir(run_dir) if n.startswith("hardway16_ep"))
         require(ckpts == ["hardway16_ep0"], ckpts)
+        saved = torch.load(os.path.join(run_dir, ckpts[0]), map_location="cpu",
+                           weights_only=True)["params"]
+        require(all(t.dtype == (torch.int64 if k.endswith("num_batches_tracked")
+                                else torch.float32) for k, t in saved.items()),
+                "a bf16 run's checkpoint must hold float32 parameters and statistics")
 
-        # ---- (d) the checkpoint as a serving artifact, validated
+        # ---- (d) the checkpoint as a serving artifact (bf16, the default), validated
         with contextlib.redirect_stdout(sys.stderr):
             validation = export_model.main(["--summaries_dir", run_dir, "--out",
                                             os.path.join(tmp, "model.avt"), "--image_size",
                                             str(IMAGE_SIZE), "--validate", "8"])
+        require(validation["compute_dtype"] == "bfloat16", validation)
         require(all(validation[k] == 0.0 for k in ("ciou_delta", "auc_delta",
                                                    "ciou_per_sample_max_delta",
                                                    "heatmap_max_abs_diff")), validation)
 
-    # ---- (b) the same steps with the plain versions of K1 and K2
+    # ---- (b) float32 steps with the plain versions of K1 and K2
     batches = [recipe_batch(dev, TRAIN_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg, seed=SEED + i)
                for i in range(CURVE_STEPS)]
 
-    def curve(impl: str, lr: float, data) -> tuple[list[float], object]:
-        state = create_train_state(AVENet(generator=torch.Generator().manual_seed(SEED)).to(dev),
-                                   OptimConfig(learning_rate=lr))
+    def curve(impl: str, lr: float, data, dtype: str = "float32"
+              ) -> tuple[list[float], object]:
+        model = AVENet(generator=torch.Generator().manual_seed(SEED), compute_dtype=dtype)
+        state = create_train_state(model.to(dev), OptimConfig(learning_rate=lr))
         return [float(hardway_fused_train_step(state, c, w, d, cfg, image_size=IMAGE_SIZE,
                                                impl=impl)["loss"]) for c, w, d in data], state
 
@@ -1114,51 +1276,30 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
     flips = int((masks != plain_masks).sum(dim=(1, 2)).max())
     require(flips <= MASK_FLIPS, f"eval masks, kernels vs plain: {flips} flips")
 
-    # ---- (c) eight steps on one batch lower the loss
-    overfit, overfit_state = curve("kernel", OVERFIT_LR, [batches[0]] * OVERFIT_STEPS)
-    del overfit_state
+    # ---- (c) eight bf16 steps on one batch lower the loss
+    overfit, state_bf16 = curve("kernel", OVERFIT_LR, [batches[0]] * OVERFIT_STEPS, "bfloat16")
     require(np.isfinite(overfit).all() and overfit[-1] < overfit[0], overfit)
+    require(all(p.dtype == torch.float32 for p in state_bf16.model.parameters()),
+            "bf16 training changed a parameter's dtype")
+    bn_err = bn_hand_check(state_bf16, batches[1], cfg)
 
-    # ---- step time at the recipe batch, memory, launches and idle share
-    clips, waves, draws = batches[0]
-
-    def step():
-        return hardway_fused_train_step(state, clips, waves, draws, cfg, image_size=IMAGE_SIZE)
-
-    step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMED_STEPS):
-        step()
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / TIMED_STEPS
-    step_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    t0 = time.monotonic()
-    for _ in range(TIMED_STEPS):
-        step()
-    torch.cuda.synchronize()
-    step_host_ms = (time.monotonic() - t0) * 1e3 / TIMED_STEPS
-    profiled = profile_train_step(state, clips, waves, draws, cfg, IMAGE_SIZE, steps=1)
-    parts = step_parts_ms(state, clips, waves, draws, cfg, IMAGE_SIZE)
+    # ---- step time at the recipe batch, memory, launches and idle share, both dtypes
+    timed = {"bfloat16": time_step(state_bf16, batches[0], cfg, dev),
+             "float32": time_step(state, batches[0], cfg, dev)}
     waits = [r["loader_wait_ms"] for r in steps]
     emit("train", card=report, batch=TRAIN_BATCH, frames=TRAIN_FRAMES, views=2,
-         image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), dtype="float32",
+         image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
          cli_steps=TRAIN_STEPS, cli_seconds_host_clock=round(cli_s, 2), launches=launches,
          losses=losses, final=final, checkpoints=ckpts, validation=validation,
-         curve_kernel=kernel_losses, curve_plain=plain_losses,
+         curve_dtype="float32", curve_kernel=kernel_losses, curve_plain=plain_losses,
          curve_max_rel_diff_vs_plain=rel, eval_mask_flips_vs_plain=flips,
-         overfit_lr=OVERFIT_LR, overfit_losses=overfit,
-         train_step_ms=step_ms, train_step_ms_host_clock=step_host_ms,
+         overfit_dtype="bfloat16", overfit_lr=OVERFIT_LR, overfit_losses=overfit,
+         bn_running_stats_vs_hand_max_rel_err=bn_err,
          loader_wait_ms_per_step=waits,
          loader_wait_ms_after_the_first=float(np.mean(waits[1:])),
          max_memory_allocated_gib_cli=cli_peak_gib,
-         max_memory_allocated_gib_step=step_peak_gib,
-         profile=profiled, k1_share_of_step=profiled["k1_kernel_ms_per_step"] / step_ms,
-         step_parts_ms=parts)
+         train_step_ms=timed["bfloat16"]["train_step_ms"],
+         train_step_ms_float32=timed["float32"]["train_step_ms"], by_dtype=timed)
     return launches
 
 
@@ -1167,14 +1308,14 @@ def main() -> int:
     dev, report = phase_device()
     phase_build()
     results = phase_kernels(dev)
-    launches = phase_serve(dev, report)
+    served = phase_serve(dev, report)
     flow_launches = phase_flow(dev, report, results["correlation"])
     train_launches = phase_train(dev, report)
     # each path's count, taken with the counts set to 0 just before it
-    by_path = {"stft": {"serve": launches["stft"], "train": train_launches["stft"]},
-               "median_select": {"serve": launches["median_select"],
-                                 "train": train_launches["median_select"]},
-               "correlation": {"flow": flow_launches["forward"]}}
+    by_path = {key: {"serve_bf16": served["bfloat16"][key],
+                     "serve_fp32": served["float32"][key], "train": train_launches[key]}
+               for key in ("stft", "median_select")}
+    by_path["correlation"] = {"flow": flow_launches["forward"]}
     results["correlation"]["backward_launches"] = flow_launches["backward"]
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "kernel_ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where one served batch of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_torch_serving.py [--batch 8] [--steps 10] [--out DIR]
+    python3 scripts/profile_torch_serving.py [--batch 8] [--steps 10]
+        [--compute_dtype float32] [--cudnn_benchmark] [--out DIR]
 
-Builds a seeded full-width localizer (`avtubes_torch`), runs `--steps`
+Builds a seeded full-width localizer (`avtubes_torch`, backbones in
+`--compute_dtype`; `--cudnn_benchmark` sets `torch.backends.cudnn.benchmark`
+before the runner's warmup, as `cli/serve.py` does), runs `--steps`
 batches through `ArtifactRunner.run` under `torch.profiler` (CPU + CUDA
 activities) and prints one JSON line: wall time per batch on the host's
 clock, the device's busy time per batch (sum of kernel and memcpy device
@@ -36,13 +39,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
+    p.add_argument("--cudnn_benchmark", action="store_true")
     p.add_argument("--out", default=None, help="directory for the Chrome trace")
     a = p.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = a.cudnn_benchmark
     cfg = SpectrogramConfig()
-    model = AVENet(generator=torch.Generator().manual_seed(0))
+    model = AVENet(generator=torch.Generator().manual_seed(0), compute_dtype=a.compute_dtype)
     runner = ArtifactRunner(export_localizer(model, cfg), max_batch=a.batch)
     runner.warmup()
     rng = np.random.RandomState(0)
@@ -80,11 +86,12 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(os.path.join(a.out, "serving_trace.json"))
     print(json.dumps({
         "card": device_report(), "batch": a.batch, "steps": a.steps,
+        "compute_dtype": a.compute_dtype, "cudnn_benchmark": a.cudnn_benchmark,
         "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches_per_batch": sum(r[2] for r in rows),
         "top_kernels_ms_per_batch": [
-            {"name": k[:80], "ms": ms, "calls": calls} for k, ms, calls in rows[:10]],
+            {"name": k[:120], "ms": ms, "calls": calls} for k, ms, calls in rows[:12]],
     }))
     return 0
 

@@ -4,17 +4,19 @@ the card's time.
 
     python3 scripts/profile_torch_train_step.py [--batch 20] [--frames 16]
                                                 [--image_size 224] [--steps 2]
+                                                [--compute_dtype bfloat16]
                                                 [--out DIR]
 
 Makes one synthetic recipe batch on the card (uint8 clips of `--frames`
 frames, int16 waveforms of 10 s at 22.05 kHz), one set of augmentation
-draws and a seeded float32 AVENet train state (`avtubes_torch`, TF32 off),
+draws and a seeded AVENet train state (`avtubes_torch`, backbones in
+`--compute_dtype`, TF32 off),
 runs `--steps` calls of `hardway_fused_train_step` under `torch.profiler`
 (CPU + CUDA activities) and prints one JSON line: wall time per step on the
 host's clock, the device's busy time per step (sum of kernel and memcpy
 device time), the idle share that follows from the two, device launches per
-step, the device time of the hand-written K1 kernel and of the fifteen most
-expensive kernels, CUDA-event times of the step's parts (spectrogram,
+step, the device time of the hand-written K1 kernel, of cuDNN's NHWC<->NCHW
+layout conversions and of the fifteen most expensive kernels, CUDA-event times of the step's parts (spectrogram,
 augmentation, forward + loss, backward, optimizer) and the peak device
 memory of a step.  With `--out` it also writes the Chrome trace there.
 Needs one CUDA card; exits non-zero without one.
@@ -69,6 +71,10 @@ def recipe_batch(dev: torch.device, batch: int, frames: int, image_size: int,
     return clips, waves, draws
 
 
+#: name parts of cuDNN's layout-conversion kernels
+LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw")
+
+
 def profile_train_step(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
                        image_size: int, steps: int = 2, out: str | None = None) -> dict:
     """Profile `steps` fused steps of `state` on one resident batch; returns
@@ -110,6 +116,13 @@ def profile_train_step(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
         "device_launches_per_step": sum(r[2] for r in rows),
         "k1_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "log_spectrogram" in k),
         "k1_launches_per_step": sum(c for k, _, c in rows if "log_spectrogram" in k),
+        "layout_conversions_per_step": sum(
+            c for k, _, c in rows if any(n in k for n in LAYOUT_CONVERSIONS)),
+        "layout_conversions_ms_per_step": sum(
+            ms for k, ms, _ in rows if any(n in k for n in LAYOUT_CONVERSIONS)),
+        "layout_conversion_kernels": [
+            {"name": k[:120], "ms": ms, "calls": calls} for k, ms, calls in rows
+            if any(n in k for n in LAYOUT_CONVERSIONS)],
         "top_kernels_ms_per_step": [
             {"name": k[:80], "ms": ms, "calls": calls} for k, ms, calls in rows[:15]],
     }
@@ -153,6 +166,7 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
     p.add_argument("--out", default=None, help="directory for the Chrome trace")
     a = p.parse_args(argv)
 
@@ -160,7 +174,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")                       # the card, or an error
     spec_cfg = SpectrogramConfig()
-    model = AVENet(generator=torch.Generator().manual_seed(0)).to(dev)
+    model = AVENet(generator=torch.Generator().manual_seed(0),
+                   compute_dtype=a.compute_dtype).to(dev)
     state = create_train_state(model, OptimConfig())
     clips, waves, draws = recipe_batch(dev, a.batch, a.frames, a.image_size, spec_cfg)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -170,7 +185,8 @@ def main(argv=None) -> int:
     report["cuda_event_ms"] = step_parts_ms(state, clips, waves, draws, spec_cfg,
                                             a.image_size)
     print(json.dumps({"card": device_report(), "batch": a.batch, "frames": a.frames,
-                      "image_size": a.image_size, **report}))
+                      "image_size": a.image_size, "compute_dtype": a.compute_dtype,
+                      **report}))
     return 0
 
 

@@ -244,3 +244,68 @@ def test_flip_and_crop_are_per_sample():
     cropped = tt.random_crop_clip(clip, torch.tensor([1, 0]), torch.tensor([2, 3]), 3)
     assert torch.equal(cropped[0], clip[0, :, 1:4, 2:5])
     assert torch.equal(cropped[1], clip[1, :, 0:3, 3:6])
+
+
+# ------------------------------------------- the draws' one host-to-device copy
+
+def test_to_device_in_one_copy_moves_every_bit():
+    rng = np.random.RandomState(0)
+    floats = torch.from_numpy(rng.randn(7).astype(np.float32))
+    floats[0], floats[1] = float("nan"), -0.0
+    tensors = [torch.tensor([True, False, True]), torch.from_numpy(rng.randint(0, 99, 5)),
+               floats, torch.zeros(0, dtype=torch.int64),
+               torch.from_numpy(rng.randint(0, 9, (3, 4))), torch.tensor([False])]
+    moved = tt.to_device_in_one_copy(tensors, "cpu")
+    assert len(moved) == len(tensors)
+    for got, want in zip(moved, tensors):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8))
+    # one buffer behind all of them
+    assert len({t.untyped_storage().data_ptr() for t in moved if t.numel()}) == 1
+
+
+def _augment_with_a_copy_per_draw(clips_uint8, draws, image_size):
+    """`augment_train_batch` as it was before the draws travelled in one copy:
+    each draw, factor and group index moved by its own `.to(device)`."""
+    dev = clips_uint8.device
+    v1 = tt.random_hflip(clips_uint8.to(torch.float32) / 255.0, draws.flip1.to(dev))
+    v2 = tt.random_crop_clip(v1, draws.top.to(dev), draws.left.to(dev),
+                             int(image_size * tt.CROP_FRACTION))
+    factors = (draws.brightness, draws.contrast, draws.saturation, draws.hue)
+    order = draws.order.expand(v2.shape[0], 4)
+    for step in range(4):
+        ops = order[:, step]
+        if bool((ops == ops[0]).all()):
+            v2 = tt._jitter_op(int(ops[0]), v2, factors[int(ops[0])].to(dev))
+            continue
+        out = torch.empty_like(v2)
+        for op in torch.unique(ops).tolist():
+            idx = torch.nonzero(ops == op).flatten().to(dev)
+            out[idx] = tt._jitter_op(op, v2[idx], factors[op].to(dev)[idx])
+        v2 = out
+    v2 = tt.resize_bicubic(v2, image_size)
+    v2 = tt.random_hflip(torch.clamp(v2, 0.0, 1.0), draws.flip2.to(dev))
+    return tt._normalize01(v1), tt._normalize01(v2)
+
+
+@pytest.mark.parametrize("jitter_order", ["random", "fixed"])
+def test_the_one_copy_augmentation_is_bit_equal_to_a_copy_per_draw(jitter_order, monkeypatch):
+    b, size, clip_size = 6, 64, 72
+    clips = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (b, 2, clip_size, clip_size, 3), dtype=np.uint8))
+    draws = tt.sample_augment_draws(b, torch.Generator().manual_seed(3), jitter_order,
+                                    size, clip_size=clip_size)
+    want = _augment_with_a_copy_per_draw(clips, draws, size)
+    copies = []
+    real = tt.to_device_in_one_copy
+    monkeypatch.setattr(tt, "to_device_in_one_copy",
+                        lambda ts, dev: copies.append(len(ts)) or real(ts, dev))
+    got = tt.augment_train_batch(clips, draws, size)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32
+        assert torch.equal(g, w)
+    # everything in one copy: eight draws, then the jitter's group indices
+    _, indices = tt.jitter_groups(draws.order, b)
+    assert copies == [8 + len(indices)]
+    if jitter_order == "random":
+        assert copies[0] > 8                 # mixed orders: the indices travel too

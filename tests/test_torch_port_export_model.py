@@ -102,8 +102,10 @@ def test_export_model_cli_and_validation_give_zero_deltas(tmp_path, js, capsys):
     state = create_train_state(model, OptimConfig())
     save_checkpoint(tmp_path, "hardway16", 2, state)
     out = tmp_path / "model.avt"
+    # a float32 export (bfloat16, the CLI's default, is in test_torch_port_bf16.py)
     report = export_model.main(["--summaries_dir", str(tmp_path), "--out", str(out),
-                                "--device", "cpu", *SMALL, "--validate", "6"])
+                                "--device", "cpu", "--compute_dtype", "float32", *SMALL,
+                                "--validate", "6"])
     printed = capsys.readouterr().out
     assert "loaded" in printed and "hardway16_ep2" in printed and "validate OK" in printed
     assert report["n"] == 6

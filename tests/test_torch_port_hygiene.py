@@ -44,6 +44,7 @@ def test_importing_every_module_pulls_in_no_jax_and_builds_nothing():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
         "assert 'PIL' not in sys.modules, 'PIL imported eagerly'\n"
+        "assert 'cv2' not in sys.modules, 'cv2 imported eagerly'\n"
         "print('clean', len(mods))\n")
     built_before = sorted((PORT / "_build").glob("*"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,

@@ -332,6 +332,8 @@ def test_http_health_stats_and_errors(server, served):
     with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
         stats = json.loads(resp.read())
     assert stats["requests"] == 1 and stats["batches"] == 1 and stats["errors"] == 0
+    # the artifact's compute dtype (this fixture's model is float32)
+    assert stats["compute_dtype"] == health["model"]["compute_dtype"] == "float32"
     # 400: missing fields, bad base64 image, non-object body, empty audio
     assert _post(url + "/localize", {"image": ok["image"]})[0] == 400
     assert _post(url + "/localize", {"image": "!!!", "pcm": ok["pcm"]})[0] == 400

@@ -62,9 +62,10 @@ def numpy_variables(state) -> dict:
                            "batch_stats": state.batch_stats})
 
 
-def port_model(state) -> AVENet:
-    """The port's AVENet in eval mode with the JAX state's weights."""
-    model = AVENet(generator=torch.Generator().manual_seed(1))
+def port_model(state, compute_dtype: str = "float32") -> AVENet:
+    """The port's AVENet in eval mode with the JAX state's weights, its
+    backbones in `compute_dtype`."""
+    model = AVENet(generator=torch.Generator().manual_seed(1), compute_dtype=compute_dtype)
     model.load_state_dict(avenet_from_flax(numpy_variables(state)), strict=True)
     return model.eval()
 
