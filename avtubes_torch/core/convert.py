@@ -13,9 +13,11 @@ PyTorch model's names, so the translation is a rename:
     batch_stats ...bn.{mean,var}         -> ...running_{mean,var}
     downsample_conv / downsample_bn      -> downsample.{0,1}
 
-Conv kernels transpose HWIO -> OIHW.  BatchNorm's `num_batches_tracked`
-is emitted as 0, so `load_state_dict(sd, strict=True)` passes on the port's
-`AVENet` / `ResNet2D` (which own one stem each and no classifier head).
+Conv kernels transpose HWIO -> OIHW (DHWIO -> OIDHW for the 3D tube
+encoder, whose one stem `stem` is `conv1`).  BatchNorm's
+`num_batches_tracked` is emitted as 0, so `load_state_dict(sd, strict=True)`
+passes on the port's `AVENet` / `FullModel` / `ResNet2D` / `ResNet3D`
+(which own one stem each and no classifier head).
 
 `FlowNetLite` keeps the flax names, so `flownet_from_flax` only joins the
 path with dots, transposes the kernels and carries `corr_temp`.
@@ -47,20 +49,22 @@ def _bn_out(params_node: Mapping, stats_node: Mapping, prefix: str,
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def resnet2d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
-                       ) -> dict[str, torch.Tensor]:
-    """One backbone's flax tree -> state_dict entries under `prefix`."""
+def _backbone_from_flax(params: Mapping, stats: Mapping, prefix: str,
+                        stems: Mapping[str, str]) -> dict[str, torch.Tensor]:
+    """One backbone's flax tree -> state_dict entries under `prefix`; `stems`
+    maps its flax stem names to the torch ones."""
     out: dict[str, torch.Tensor] = {}
 
-    def kernel(node) -> torch.Tensor:  # HWIO -> OIHW
-        return torch.from_numpy(np.ascontiguousarray(
-            np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1)))
+    def kernel(node) -> torch.Tensor:  # HWIO -> OIHW, DHWIO -> OIDHW
+        k = np.asarray(node["kernel"], np.float32)
+        order = (4, 3, 0, 1, 2) if k.ndim == 5 else (3, 2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(k.transpose(order)))
 
     for name, node in sorted(params.items()):
         if name == "stem_bn":
             _bn_out(node, stats.get("stem_bn", {}), f"{prefix}bn1", out)
-        elif name in _TORCH_NAME_BY_STEM:
-            out[f"{prefix}{_TORCH_NAME_BY_STEM[name]}.weight"] = kernel(node)
+        elif name in stems:
+            out[f"{prefix}{stems[name]}.weight"] = kernel(node)
         elif "_block" in name:
             layer, block = name.split("_block")
             tp = f"{prefix}{layer}.{block}."
@@ -81,18 +85,33 @@ def resnet2d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
     return out
 
 
+def resnet2d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
+                       ) -> dict[str, torch.Tensor]:
+    """One 2D backbone's flax tree -> state_dict entries under `prefix`."""
+    return _backbone_from_flax(params, stats, prefix, _TORCH_NAME_BY_STEM)
+
+
+def resnet3d_from_flax(params: Mapping, stats: Mapping, prefix: str = ""
+                       ) -> dict[str, torch.Tensor]:
+    """The 3D tube encoder's flax tree -> state_dict entries under `prefix`."""
+    return _backbone_from_flax(params, stats, prefix, {"stem": "conv1"})
+
+
 _FLAX_LEAF = {"weight": "kernel"}
 _FLAX_BN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean",
                  "running_var": "var"}
 
 
 def flax_path(name: str) -> tuple[str, ...]:
-    """The flax path of one of the port's AVENet `state_dict` names — the
-    inverse of the rename above: ``imgnet.layer1.0.bn2.weight`` ->
-    ``('imgnet', 'layer1_block0', 'bn2', 'scale')``,
-    ``audnet.conv1_a.weight`` -> ``('audnet', 'stem_audio', 'kernel')``."""
+    """The flax path of one of the port's AVENet or FullModel `state_dict`
+    names — the inverse of the rename above: ``imgnet.layer1.0.bn2.weight``
+    -> ``('imgnet', 'layer1_block0', 'bn2', 'scale')``,
+    ``audnet.conv1_a.weight`` -> ``('audnet', 'stem_audio', 'kernel')``,
+    ``vidnet.conv1.weight`` -> ``('vidnet', 'stem', 'kernel')``."""
     parts = name.split(".")
     net, head, leaf = parts[0], parts[1], parts[-1]
+    if net == "vidnet" and head == "conv1":     # the 3D tube encoder's one stem
+        return (net, "stem", _FLAX_LEAF.get(leaf, leaf))
     if head in _STEM_BY_TORCH_NAME:
         return (net, _STEM_BY_TORCH_NAME[head], _FLAX_LEAF.get(leaf, leaf))
     if head == "bn1":
@@ -113,6 +132,16 @@ def avenet_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for net in ("imgnet", "audnet"):
         out.update(resnet2d_from_flax(params[net], stats.get(net, {}), f"{net}."))
+    return out
+
+
+def fullmodel_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`{'params', 'batch_stats'}` of the JAX package's FullModel, as nested
+    dicts of numpy arrays -> state_dict for
+    `avtubes_torch.models.fullmodel.FullModel` (loads with ``strict=True``)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out = resnet3d_from_flax(params["vidnet"], stats.get("vidnet", {}), "vidnet.")
+    out.update(resnet2d_from_flax(params["audnet"], stats.get("audnet", {}), "audnet."))
     return out
 
 

@@ -1,9 +1,10 @@
 """Checkpoints of the original PyTorch implementation (`.pth` / `.pth.tar`).
 
 Counterpart of `avtubes/core/torch_import.py::load_torch_state_dict` /
-`avenet_from_torch` and `core/torch_export.py::avenet_to_torch` /
-`save_torch_checkpoint`.  The port's AVENet carries the original module
-names (`core/convert.py`), so crossing is a filter, not a rename:
+`avenet_from_torch` / `fullmodel_from_torch` and
+`core/torch_export.py::avenet_to_torch` / `save_torch_checkpoint`.  The
+port's AVENet and FullModel carry the original module names
+(`core/convert.py`), so crossing is a filter, not a rename:
 
   * reading (`--use_pretrained` warm start): the envelope's
     `model_state_dict` (or a bare state_dict), a leading DataParallel
@@ -14,6 +15,11 @@ names (`core/convert.py`), so crossing is a filter, not a rename:
     with those dead tensors synthesized as zeros (inert: no localization
     forward uses them) so the original `AVENet.load_state_dict` passes with
     strict checking.
+
+A FullModel warm start (`load_fullmodel_reference_checkpoint`) takes either
+a `vidnet.`/`audnet.`-prefixed FullModel state_dict, which loads both towers,
+or a bare r3d-18 state_dict (the Kinetics-pretrained video net), which loads
+the tube encoder only; the dead `fc` heads are dropped.
 
 Loading uses ``weights_only=True``: tensors and plain containers only.
 """
@@ -44,9 +50,8 @@ def _dead(name: str, model: nn.Module) -> bool:
     net, head = name.split(".")[:2]
     if head in ("fc", "avgpool"):
         return True
-    backbone = getattr(model, net, None)
-    return head in STEM_NAMES.values() and backbone is not None and \
-        head != STEM_NAMES[backbone.modal]
+    modal = getattr(getattr(model, net, None), "modal", None)   # None: the 3D net
+    return head in STEM_NAMES.values() and modal is not None and head != STEM_NAMES[modal]
 
 
 def load_reference_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
@@ -56,6 +61,21 @@ def load_reference_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
     kept = {k: v for k, v in sd.items() if not _dead(k, model)}
     model.load_state_dict(kept, strict=True)
     return model
+
+
+def load_fullmodel_reference_checkpoint(path: str | Path, model: nn.Module) -> tuple[str, ...]:
+    """Load a reference FullModel checkpoint (both towers) or a bare r3d-18
+    one (the tube encoder only) into the port's FullModel, in place and
+    strict about every tensor loaded.  Returns the towers it loaded."""
+    sd = load_reference_state_dict(path)
+    if any(k.startswith("vidnet.") for k in sd):
+        model.load_state_dict({k: v for k, v in sd.items() if not _dead(k, model)},
+                              strict=True)
+        return ("vidnet", "audnet")
+    model.vidnet.load_state_dict(
+        {k: v for k, v in sd.items() if k.split(".")[0] not in ("fc", "avgpool")},
+        strict=True)
+    return ("vidnet",)
 
 
 def reference_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:

@@ -444,3 +444,11 @@ def augment_train_batch(clips_uint8: torch.Tensor, draws: AugmentDraws,
     v2 = resize_bicubic(v2, image_size)
     v2 = random_hflip(torch.clamp(v2, 0.0, 1.0), flip2)
     return _normalize01(v1), _normalize01(v2)
+
+
+def augment_view1(clips_uint8: torch.Tensor, flip1: torch.Tensor) -> torch.Tensor:
+    """View 1 of `augment_train_batch` alone, (B, T, S, S, 3) uint8 ->
+    ImageNet-normalized float32: each clip flipped where `flip1` (B,) is
+    true.  The 3D tube step trains on view 1 only; the JAX package draws
+    both views and drops the second, whose work this skips."""
+    return _normalize01(random_hflip(clips_uint8.to(torch.float32) / 255.0, flip1))

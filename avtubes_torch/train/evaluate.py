@@ -10,8 +10,12 @@ Counterpart of `avtubes/train/evaluate.py`, with the original protocol:
   * per-frame test: every sampling_rate-th frame of each test video, per-video
     cIoU@0.5/AUC averaged over videos, plus mTC between consecutive masks.
 
-The overlay images of `record_qualitative` are not ported (they need the
-JAX package's `utils/visual.py`): asking for them raises.
+`model_kind` "2d" scores AVENet; "3d" scores the tube model FullModel: in
+the hard-way test each frame as a clip of one frame, in the per-frame test
+the sampled frames of a video as ONE clip at their natural length.
+`record` > 0 with a `logger` writes the overlay images of
+`--record_qualitative` (`utils/visual.py::overlay_heatmap`, under the JAX
+package's names) for the first `record` samples or videos.
 """
 
 from __future__ import annotations
@@ -30,10 +34,9 @@ from avtubes_torch.evaluation.gt import flickr_gt_from_xml, vggss_gt_from_bboxes
 from avtubes_torch.evaluation.metrics import auc_from_ciou, ciou_single, mtc
 from avtubes_torch.evaluation.postprocess import heatmap_to_mask_batch
 from avtubes_torch.train.steps import eval_mode
+from avtubes_torch.utils.visual import overlay_heatmap
 
-RECORD_NOT_PORTED = (
-    "record_qualitative (overlay images of the evaluated frames) needs utils/visual.py, "
-    "which is not ported to avtubes_torch yet (ROADMAP.md Queue 1 item 11)")
+MODEL_KINDS = ("2d", "3d")
 
 
 def make_gt_lookup(data_cfg: DataConfig, per_frame: bool = False,
@@ -64,25 +67,40 @@ def make_gt_lookup_auto(data_cfg: DataConfig, per_frame: bool = False):
     return make_gt_lookup(data_cfg, per_frame=per_frame, vggss_index=vggss_index)
 
 
+def _check_kind(model_kind: str) -> None:
+    if model_kind not in MODEL_KINDS:
+        raise ValueError(f"model_kind must be one of {MODEL_KINDS}, got {model_kind!r}")
+
+
 def _hardway_eval_masks(model: nn.Module, frames_uint8: torch.Tensor,
                         waveforms: torch.Tensor, spec_cfg: SpectrogramConfig,
-                        impl: str = "kernel") -> torch.Tensor:
-    """Raw frames + waveforms -> binary masks: normalize, K1, both encoders
-    in eval mode, K2 (`impl='plain'`: the kernels' plain versions)."""
+                        impl: str = "kernel", model_kind: str = "2d") -> torch.Tensor:
+    """Raw frames (N, S, S, 3) + waveforms -> binary masks: normalize, K1,
+    both encoders in eval mode, K2 (`impl='plain'`: the kernels' plain
+    versions).  "3d": each frame a clip of one frame through FullModel."""
     with eval_mode(model):
         frames = normalize_imagenet(frames_uint8)
         spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
-        return heatmap_to_mask_batch(model(frames, spec).heatmap, impl=impl)
+        if model_kind == "3d":
+            heat = model.forward_shared_audio(spec, frames[:, None]).heatmap
+        else:
+            heat = model(frames, spec).heatmap
+        return heatmap_to_mask_batch(heat, impl=impl)
 
 
 def _perframe_masks(model: nn.Module, frames_uint8: torch.Tensor, waveform: torch.Tensor,
-                    spec_cfg: SpectrogramConfig) -> torch.Tensor:
-    """Per-frame eval of one video: every frame against the clip's audio,
-    encoded once."""
+                    spec_cfg: SpectrogramConfig, model_kind: str = "2d",
+                    impl: str = "kernel") -> torch.Tensor:
+    """Per-frame eval of one video: its frames (K, S, S, 3) against the
+    clip's audio, encoded once.  "3d": the K frames as one clip."""
     with eval_mode(model):
         frames = normalize_imagenet(frames_uint8)
-        spec = log_spectrogram(waveform[None], spec_cfg)[..., None]
-        return heatmap_to_mask_batch(model.forward_shared_audio(frames, spec).heatmap)
+        spec = log_spectrogram(waveform[None], spec_cfg, impl=impl)[..., None]
+        if model_kind == "3d":
+            heat = model.forward_shared_audio(spec, frames[None]).heatmap
+        else:
+            heat = model.forward_shared_audio(frames, spec).heatmap
+        return heatmap_to_mask_batch(heat, impl=impl)
 
 
 def _pad_rows(arr: np.ndarray, to: int) -> np.ndarray:
@@ -109,18 +127,20 @@ def _device_of(model: nn.Module) -> torch.device:
 
 def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
                      spec_cfg: SpectrogramConfig, gt_lookup, epoch: int = 0,
-                     record: int = 0, evaluated_ids: list | None = None) -> dict[str, float]:
+                     logger=None, record: int = 0, model_kind: str = "2d",
+                     evaluated_ids: list | None = None) -> dict[str, float]:
     """Hard-way test: cIoU@0.5 + AUC over the loader's samples, on the
     model's device.  One K1 and one K2 launch a batch on the card; the last
     partial batch is padded to the steady-state shape.
 
-    evaluated_ids, when given, collects the id of every sample scored (the
-    loader skips and counts decode failures, so this can be a subset of the
-    split)."""
-    if record:
-        raise NotImplementedError(RECORD_NOT_PORTED)
+    record > 0 writes the overlay of the first `record` samples through
+    `logger.log_image` as `<id>_hardway` (step = epoch).  evaluated_ids,
+    when given, collects the id of every sample scored (the loader skips and
+    counts decode failures, so this can be a subset of the split)."""
+    _check_kind(model_kind)
     device = _device_of(model)
     cious = []
+    recorded = 0
     full_bsz = getattr(loader, "batch_size", 0)
     for batch in loader.epoch(epoch):
         n = batch["frame"].shape[0]
@@ -128,11 +148,17 @@ def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
         masks = _hardway_eval_masks(
             model, torch.from_numpy(_pad_rows(batch["frame"], pad_to)).to(device),
             torch.from_numpy(_pad_rows(batch["waveform"], pad_to)).to(device),
-            spec_cfg).cpu().numpy()[:n]
+            spec_cfg, model_kind=model_kind).cpu().numpy()[:n]
         for i, vid in enumerate(batch["id"]):
-            cious.append(ciou_single(masks[i], gt_lookup(vid, None), 0.5))
+            gt = gt_lookup(vid, None)
+            cious.append(ciou_single(masks[i], gt, 0.5))
             if evaluated_ids is not None:
                 evaluated_ids.append(vid)
+            if logger is not None and recorded < record:
+                logger.log_image(f"{vid}_hardway",
+                                 overlay_heatmap(batch["frame"][i], masks[i], gt),
+                                 step=epoch)
+                recorded += 1
     cious = np.asarray(cious)
     return {
         "hardway_ciou": float(np.mean(cious >= 0.5)),
@@ -142,16 +168,20 @@ def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
 
 
 def evaluate_perframe(model: nn.Module, source, data_cfg: DataConfig,
-                      spec_cfg: SpectrogramConfig, gt_lookup, record: int = 0,
-                      epoch: int = 0) -> dict[str, float]:
+                      spec_cfg: SpectrogramConfig, gt_lookup, model_kind: str = "2d",
+                      logger=None, record: int = 0, epoch: int = 0) -> dict[str, float]:
     """Whole-video per-frame eval with mTC.
 
     `source.load(i)` gives {"clip": (T, S, S, 3) uint8, "waveform", "id"} per
-    video.  Frames i = sampling_rate, 2 sampling_rate, ... < T-1 are scored,
-    padded to a bucket of frames; a video shorter than one stride is skipped.
+    video.  Frames i = sampling_rate, 2 sampling_rate, ... < T-1 are scored; a
+    video shorter than one stride is skipped.  "2d" scores them padded to a
+    bucket of frames (each frame alone); "3d" as one clip at its natural
+    length, since 3D convolutions couple neighbouring frames and padding
+    would change the features near its end.  One K1 and one K2 launch a
+    video on the card.  record > 0 writes the overlay of every scored frame
+    of the first `record` videos as `<id>_test_frame_<frame>` (step = epoch).
     """
-    if record:
-        raise NotImplementedError(RECORD_NOT_PORTED)
+    _check_kind(model_kind)
     device = _device_of(model)
     ious, aucs, mtcs = [], [], []
     stride = data_cfg.sampling_rate
@@ -166,15 +196,22 @@ def evaluate_perframe(model: nn.Module, source, data_cfg: DataConfig,
         if not idxs:
             continue
         k = len(idxs)
+        frames = clip[idxs] if model_kind == "3d" else _pad_rows(clip[idxs], bucket_len(k))
         masks = _perframe_masks(
-            model, torch.from_numpy(_pad_rows(clip[idxs], bucket_len(k))).to(device),
+            model, torch.from_numpy(frames).to(device),
             torch.from_numpy(np.asarray(sample["waveform"])).to(device),
-            spec_cfg).cpu().numpy()[:k]
+            spec_cfg, model_kind).cpu().numpy()[:k]
         iou = [ciou_single(masks[j], gt_lookup(sample["id"], fi), 0.5)
                for j, fi in enumerate(idxs)]
         ious.append(float(np.mean(np.asarray(iou) >= 0.5)))
         aucs.append(auc_from_ciou(np.asarray(iou)))
         mtcs.append(mtc([masks[j] for j in range(k)]))
+        if logger is not None and vi < record:
+            for j, fi in enumerate(idxs):
+                logger.log_image(
+                    f"{sample['id']}_test_frame_{fi}",
+                    overlay_heatmap(clip[fi], masks[j], gt_lookup(sample["id"], fi)),
+                    step=epoch)
     if not ious:
         return {"test_ciou": float("nan"), "test_auc": float("nan"), "test_mtc": float("nan")}
     return {

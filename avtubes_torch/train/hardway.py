@@ -14,7 +14,12 @@ The per-frame whole-video test runs, as in the JAX package, when
 `--gt_path` is given and `<data_path>/videos/` exists: every video
 `videos/<id>.mp4` of the test split is decoded (`PerFrameEvalSource`) and
 scored frame by frame; when every video is skipped its three metrics are
-NaN.
+NaN.  `--record_qualitative N` writes the overlay images of the first N
+samples of each test under `<summaries_dir>/images/`.
+
+`train_epoch`, `hardway_test` and `warm_start_or_resume` are the loop's
+parts that the 1-frame and 3D tube trainers (`train/hardway_1frame.py`,
+`train/train3d.py`) share with this one.
 
 Single process, one device.  What the JAX package has and this port does
 not yet, and which raises rather than run something else: `--remat`,
@@ -26,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from collections.abc import Callable
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +45,7 @@ from avtubes_torch.core.checkpoint import (
 )
 from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import resolve_device
+from avtubes_torch.core.reference_checkpoint import load_reference_checkpoint
 from avtubes_torch.data.index import load_split
 from avtubes_torch.data.pipeline import (
     BatchLoader,
@@ -58,7 +65,7 @@ from avtubes_torch.train.evaluate import (
     evaluate_perframe,
     make_gt_lookup_auto,
 )
-from avtubes_torch.train.state import create_train_state
+from avtubes_torch.train.state import TrainState, create_train_state
 from avtubes_torch.train.steps import hardway_fused_train_step
 from avtubes_torch.utils.logging import MetricLogger
 
@@ -130,18 +137,7 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(device)
     state = create_train_state(model, o, steps_per_epoch)
 
-    start_epoch = 0
-    if cfg.train.use_pretrained:
-        ckpt = cfg.train.pretrained_path or latest_checkpoint(cfg.train.summaries_dir, tag)
-        if ckpt and str(ckpt).endswith((".pth", ".pth.tar")):
-            from avtubes_torch.core.reference_checkpoint import load_reference_checkpoint
-
-            load_reference_checkpoint(ckpt, state.model)
-            print(f"[train] warm-started from reference checkpoint {ckpt}")
-        elif ckpt:
-            state, start_epoch = restore_checkpoint(ckpt, state)
-            start_epoch += 1
-            print(f"[train] resumed from {ckpt} at epoch {start_epoch}")
+    state, start_epoch = warm_start_or_resume(cfg, tag, state, load_reference_checkpoint)
 
     logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
     guard = PreemptionGuard()
@@ -155,59 +151,25 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     for epoch in range(start_epoch, o.epochs):
         # the epoch's augmentation draws, made on the host
         gen = torch.Generator().manual_seed((cfg.train.seed + 1) * 1_000_003 + epoch)
-        step_in_epoch = 0
-        metrics: dict = {}
-        batches = device_prefetch(loader.epoch(epoch), device, depth=d.prefetch)
-        while not (steps_cap and step_in_epoch >= steps_cap):
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            waited_ms = (time.perf_counter() - t0) * 1e3
+
+        def step(batch: dict) -> dict:
             clip = batch["clip"]
             draws = sample_augment_draws(clip.shape[0], gen, cfg.train.jitter_order,
                                          d.image_size, clip_size=clip.shape[2])
-            metrics = hardway_fused_train_step(
-                state, clip, batch["waveform"], draws, spec_cfg, o.loss_weight,
-                d.image_size, watch)
-            step_in_epoch += 1
-            norms = {k: v for k, v in metrics.items() if "_norm/" in k}
-            metrics = {k: v for k, v in metrics.items() if "_norm/" not in k}
-            if step_in_epoch % cfg.train.log_every == 0 or steps_cap:
-                logger.log(step=state.step, epoch=epoch, loader_wait_ms=waited_ms,
-                           **{k: float(v) for k, v in metrics.items()})
-            if watch and step_in_epoch % cfg.train.watch_every == 0:
-                logger.log(step=state.step, epoch=epoch,
-                           **{k: float(v) for k, v in norms.items()})
-            if guard.preempted:
-                break
-        batches.close()
-        if step_in_epoch:  # an epoch can yield zero batches (all skipped)
-            last_metrics = {k: float(v) for k, v in metrics.items()}
-        if loader.epoch_skipped:
-            logger.log(step=state.step, epoch=epoch, epoch_skipped=loader.epoch_skipped)
-        if guard.preempted:
-            # saved under the PREVIOUS epoch: a resume re-runs the partial
-            # epoch from the top (epoch - 1 may be -1: it restarts at 0)
-            save_checkpoint(cfg.train.summaries_dir, tag, epoch - 1, state)
-            print(f"[train] preempted during epoch {epoch}; checkpoint saved")
+            return hardway_fused_train_step(state, clip, batch["waveform"], draws, spec_cfg,
+                                            o.loss_weight, d.image_size, watch)
+
+        metrics = train_epoch(state, loader, epoch, device, cfg, steps_cap, logger, guard,
+                              step)
+        if metrics:  # an epoch can yield zero batches (all skipped)
+            last_metrics = metrics
+        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard):
             break
 
         if do_eval:
-            # per-sample decode by worker threads, in order, the last
-            # partial batch kept
-            eval_bsz = min(d.eval_batch_size, len(test_src))
-            if isinstance(test_src, HardwayTestSource):
-                test_loader = make_hardway_loader(test_src.root, test_src.ids, d, eval_bsz,
-                                                  num_workers=d.n_threads)
-            else:
-                test_loader = BatchLoader(test_src, eval_bsz, num_workers=d.n_threads,
-                                          shuffle=False, drop_last=False)
-            eval_metrics = evaluate_hardway(state.model, test_loader, d, spec_cfg,
-                                            gt_lookup, epoch=epoch,
-                                            record=cfg.train.record_qualitative)
+            eval_metrics = hardway_test(state, test_src, d, spec_cfg, gt_lookup, epoch,
+                                        logger, cfg.train.record_qualitative)
             last_metrics.update(eval_metrics)
-            logger.log(step=state.step, epoch=epoch, **eval_metrics)
 
             # the per-frame whole-video test, where its videos and GT are given
             video_root = Path(d.data_path)
@@ -215,7 +177,8 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
                 pf_src = PerFrameEvalSource(video_root,
                                             load_split(d.metadata_dir, d.testset, "test"), d)
                 pf = evaluate_perframe(state.model, pf_src, d, spec_cfg, pf_gt_lookup,
-                                       record=cfg.train.record_qualitative, epoch=epoch)
+                                       logger=logger, record=cfg.train.record_qualitative,
+                                       epoch=epoch)
                 last_metrics.update(pf)
                 logger.log(step=state.step, epoch=epoch, **pf)
 
@@ -226,6 +189,95 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
     guard.restore()
     last_metrics["skipped_samples"] = loader.skipped
     return last_metrics
+
+
+def warm_start_or_resume(cfg: ExperimentConfig, tag: str, state: TrainState,
+                         load_reference: Callable) -> tuple[TrainState, int]:
+    """With `--use_pretrained`: a `.pth` / `.pth.tar` checkpoint of the
+    original implementation is loaded by `load_reference(path, model)`
+    (weights only); any other, or the newest `<tag>_ep<N>` of summaries_dir,
+    is resumed from.  Returns the state and the epoch to start at."""
+    if not cfg.train.use_pretrained:
+        return state, 0
+    ckpt = cfg.train.pretrained_path or latest_checkpoint(cfg.train.summaries_dir, tag)
+    if ckpt and str(ckpt).endswith((".pth", ".pth.tar")):
+        load_reference(ckpt, state.model)
+        print(f"[train] warm-started from reference checkpoint {ckpt}")
+        return state, 0
+    if ckpt:
+        state, epoch = restore_checkpoint(ckpt, state)
+        print(f"[train] resumed from {ckpt} at epoch {epoch + 1}")
+        return state, epoch + 1
+    return state, 0
+
+
+def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torch.device,
+                cfg: ExperimentConfig, steps_cap: int, logger: MetricLogger,
+                guard: PreemptionGuard, step: Callable[[dict], dict]) -> dict[str, float]:
+    """One epoch of `step(batch)` (one update; returns its metrics as
+    tensors) over the loader's batches, prefetched to `device`, at most
+    `steps_cap` of them (0: all) and none after a preemption signal.  Logs
+    every `log_every`-th step (every step under a cap) with the loader's
+    wait, and the per-module norms every `watch_every`-th.  Returns the last
+    step's metrics as floats; empty when the epoch yielded no batch."""
+    step_in_epoch = 0
+    metrics: dict = {}
+    batches = device_prefetch(loader.epoch(epoch), device, depth=cfg.data.prefetch)
+    try:
+        while not (steps_cap and step_in_epoch >= steps_cap):
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            waited_ms = (time.perf_counter() - t0) * 1e3
+            metrics = step(batch)
+            step_in_epoch += 1
+            norms = {k: v for k, v in metrics.items() if "_norm/" in k}
+            metrics = {k: v for k, v in metrics.items() if "_norm/" not in k}
+            if step_in_epoch % cfg.train.log_every == 0 or steps_cap:
+                logger.log(step=state.step, epoch=epoch, loader_wait_ms=waited_ms,
+                           **{k: float(v) for k, v in metrics.items()})
+            if norms and step_in_epoch % cfg.train.watch_every == 0:
+                logger.log(step=state.step, epoch=epoch,
+                           **{k: float(v) for k, v in norms.items()})
+            if guard.preempted:
+                break
+    finally:
+        batches.close()
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def end_of_epoch_preempted(state: TrainState, loader: BatchLoader, epoch: int,
+                           cfg: ExperimentConfig, tag: str, logger: MetricLogger,
+                           guard: PreemptionGuard) -> bool:
+    """Log the epoch's skipped samples; after a preemption signal save the
+    state and return True.  The partial epoch is saved under the PREVIOUS
+    epoch's number, so a resume re-runs it from the top (epoch - 1 may be
+    -1: it restarts at 0)."""
+    if loader.epoch_skipped:
+        logger.log(step=state.step, epoch=epoch, epoch_skipped=loader.epoch_skipped)
+    if not guard.preempted:
+        return False
+    save_checkpoint(cfg.train.summaries_dir, tag, epoch - 1, state)
+    print(f"[train] preempted during epoch {epoch}; checkpoint saved")
+    return True
+
+
+def hardway_test(state: TrainState, test_src, d, spec_cfg: SpectrogramConfig, gt_lookup,
+                 epoch: int, logger: MetricLogger, record: int = 0) -> dict[str, float]:
+    """The hard-way test of one epoch, logged: samples decoded by worker
+    threads, in order, the last partial batch kept."""
+    eval_bsz = min(d.eval_batch_size, len(test_src))
+    if isinstance(test_src, HardwayTestSource):
+        test_loader = make_hardway_loader(test_src.root, test_src.ids, d, eval_bsz,
+                                          num_workers=d.n_threads)
+    else:
+        test_loader = BatchLoader(test_src, eval_bsz, num_workers=d.n_threads,
+                                  shuffle=False, drop_last=False)
+    metrics = evaluate_hardway(state.model, test_loader, d, spec_cfg, gt_lookup, epoch=epoch,
+                               logger=logger, record=record)
+    logger.log(step=state.step, epoch=epoch, **metrics)
+    return metrics
 
 
 def _synthetic_gt_lookup():

@@ -21,6 +21,13 @@ moments and the BatchNorm statistics, which live in the module.
 log-spectrogram (`data/spectrogram.py::log_spectrogram`, which launches the
 hand-written K1 kernel for a waveform on the card), the two-view
 augmentation with its draws injected, and the step.
+
+The 1-frame trainer's `hardway_1frame_train_step` and the 3D tube trainer's
+`train3d_step` are the plain hard-way CE over ONE forward, so every
+BatchNorm (the audio tower's too) takes that forward's update once and
+nothing more; `train3d_step` also logs the NP-ratio of the (B, T) heatmaps,
+outside autograd.  Their fused forms start from raw inputs like the
+flagship's, with their random draws injected.
 """
 
 from __future__ import annotations
@@ -33,8 +40,19 @@ from torch import nn
 
 from avtubes_torch.core.convert import flax_path
 from avtubes_torch.data.spectrogram import SpectrogramConfig, log_spectrogram
-from avtubes_torch.data.transforms import AugmentDraws, augment_train_batch
-from avtubes_torch.losses.losses import consistency_l2, hardway_loss, propagation_loss
+from avtubes_torch.data.transforms import (
+    AugmentDraws,
+    augment_train_batch,
+    augment_view1,
+    normalize_imagenet,
+    random_hflip,
+)
+from avtubes_torch.losses.losses import (
+    consistency_l2,
+    hardway_loss,
+    np_ratio_loss,
+    propagation_loss,
+)
 from avtubes_torch.train.state import TrainState
 
 #: EMA momentum of the BatchNorm running statistics in the flax convention
@@ -81,8 +99,8 @@ def _advance_audio_stats(model: nn.Module, old_stats: list[tuple[torch.Tensor, t
 
 def pytree_group_norms(named: Iterable[tuple[str, torch.Tensor]],
                        prefix: str) -> dict[str, torch.Tensor]:
-    """Per-module L2 norms of named AVENet tensors (parameters or their
-    gradients), grouped two levels deep in the JAX package's tree (e.g.
+    """Per-module L2 norms of named AVENet or FullModel tensors (parameters
+    or their gradients), grouped two levels deep in the JAX package's tree (e.g.
     ``grad_norm/imgnet/layer1_block0``): the keys are the JAX package's,
     through `core/convert.py::flax_path`."""
     squares: dict[str, list[torch.Tensor]] = {}
@@ -118,8 +136,13 @@ def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch
     combined.backward()
     state.apply_gradients()
     _advance_audio_stats(model, old_stats)
-    metrics = {"loss": combined, "hardway_loss": hw, "aug_loss": aug,
-               "l2_loss": l2, "consistency_loss": prop}
+    return _finish(model, {"loss": combined, "hardway_loss": hw, "aug_loss": aug,
+                           "l2_loss": l2, "consistency_loss": prop}, watch)
+
+
+def _finish(model: nn.Module, metrics: dict[str, torch.Tensor],
+            watch: bool) -> dict[str, torch.Tensor]:
+    """The step's metrics, detached, with the per-module norms if `watch`."""
     metrics = {k: v.detach() for k, v in metrics.items()}
     if watch:
         metrics.update(pytree_group_norms(
@@ -141,6 +164,68 @@ def hardway_fused_train_step(state: TrainState, clips_uint8: torch.Tensor,
     spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
     v1, v2 = augment_train_batch(clips_uint8, draws, image_size)
     return hardway_train_step(state, v1, v2, spec, loss_weight, watch)
+
+
+def hardway_1frame_train_step(state: TrainState, frames: torch.Tensor, spec: torch.Tensor,
+                              watch: bool = False) -> dict[str, torch.Tensor]:
+    """One update of AVENet from single frames (B, H, W, 3) and their
+    spectrograms (B, F, Tt, 1): the plain hard-way CE over one forward.
+    Each BatchNorm, the audio tower's included, takes that forward's update
+    once (no `_advance_audio_stats`)."""
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = hardway_loss(model(frames, spec).logits)
+    loss.backward()
+    state.apply_gradients()
+    return _finish(model, {"loss": loss}, watch)
+
+
+def hardway_1frame_fused_step(state: TrainState, frames_uint8: torch.Tensor,
+                              waveforms: torch.Tensor, flips: torch.Tensor,
+                              spec_cfg: SpectrogramConfig, watch: bool = False,
+                              impl: str = "kernel") -> dict[str, torch.Tensor]:
+    """The 1-frame step from raw inputs on the model's device: middle frames
+    (B, S, S, 3) uint8 and prepared waveforms (B, num_samples).
+    Log-spectrogram (K1 on the card; `impl='plain'` runs its plain version),
+    ImageNet normalization, a horizontal flip of each frame whose `flips`
+    (B,) bool draw is true, and `hardway_1frame_train_step`."""
+    spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
+    frames = random_hflip(normalize_imagenet(frames_uint8), flips)
+    return hardway_1frame_train_step(state, frames, spec, watch)
+
+
+def train3d_step(state: TrainState, video: torch.Tensor, spec: torch.Tensor,
+                 watch: bool = False) -> dict[str, torch.Tensor]:
+    """One update of FullModel from clips (B, T, H, W, 3) and one spectrogram
+    a clip (B, F, Tt, 1): the hard-way CE over the (b·t) frames, the audio
+    encoded once a clip (`forward_shared_audio`); one BatchNorm update of
+    each tower.  The NP-ratio of the (B, T, h, w) heatmaps is logged, not
+    backpropagated."""
+    b, t = video.shape[:2]
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    out = model.forward_shared_audio(spec, video)
+    loss = hardway_loss(out.logits)
+    with torch.no_grad():
+        np_ratio = np_ratio_loss(out.heatmap.reshape(b, t, *out.heatmap.shape[1:]))
+    loss.backward()
+    state.apply_gradients()
+    return _finish(model, {"loss": loss, "np_ratio": np_ratio}, watch)
+
+
+def train3d_fused_step(state: TrainState, clips_uint8: torch.Tensor,
+                       waveforms: torch.Tensor, flip1: torch.Tensor,
+                       spec_cfg: SpectrogramConfig, watch: bool = False,
+                       impl: str = "kernel") -> dict[str, torch.Tensor]:
+    """The 3D tube step from raw inputs on the model's device: host-cropped
+    clips (B, T, S, S, 3) uint8 and prepared waveforms (B, num_samples).
+    Log-spectrogram (K1 on the card; `impl='plain'`: its plain version),
+    view 1 of the two-view augmentation alone (`flip1` (B,) bool, the draws
+    view 1 takes), and `train3d_step`."""
+    spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
+    return train3d_step(state, augment_view1(clips_uint8, flip1), spec, watch)
 
 
 @contextlib.contextmanager
@@ -169,3 +254,12 @@ def eval_heatmap_shared_step(model: nn.Module, frames: torch.Tensor,
     -> (B*K,14,14) heatmaps, the audio encoded once per clip."""
     with eval_mode(model):
         return model.forward_shared_audio(frames, spec).heatmap
+
+
+def eval3d_heatmap_step(model: nn.Module, video: torch.Tensor,
+                        spec: torch.Tensor) -> torch.Tensor:
+    """3D inference: (B, T, H, W, 3) + (B, F, Tt, 1) -> (B, T, h, w) heatmaps."""
+    b, t = video.shape[:2]
+    with eval_mode(model):
+        heat = model.forward_shared_audio(spec, video).heatmap
+    return heat.reshape(b, t, *heat.shape[1:])

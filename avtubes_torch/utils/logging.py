@@ -4,8 +4,9 @@ The port's own copy of `avtubes/utils/logging.py`: every record goes to a
 JSONL file under summaries_dir (greppable, diffable) and to stdout; wandb
 attaches only if available and requested — observability must not be a hard
 dependency.  A zero-dimensional tensor is logged as its float, which waits
-for the device.  `log_image` (overlay JPEGs) waits for the evaluation code
-that draws them.
+for the device.  `log_image` writes an overlay image as a JPEG under
+`<summaries_dir>/images/` (PIL, imported when an image is logged) and to
+wandb where it is attached.
 """
 
 from __future__ import annotations
@@ -58,6 +59,22 @@ class MetricLogger:
                 f.write(line + "\n")
         if self._wandb:
             self._wandb.log({k: v for k, v in rec.items() if k not in ("t",)})
+
+    def log_image(self, name: str, image, step: int | None = None) -> None:
+        """Log an overlay image (uint8 RGB): `images/<name>_<step>.jpg`
+        under summaries_dir, and to wandb if attached."""
+        import numpy as np
+
+        arr = np.asarray(image)
+        if self.path:
+            from PIL import Image
+
+            d = self.path.parent / "images"
+            d.mkdir(exist_ok=True)
+            suffix = f"_{step}" if step is not None else ""
+            Image.fromarray(arr).save(d / f"{name}{suffix}.jpg")
+        if self._wandb:
+            self._wandb.log({name: self._wandb.Image(arr)})
 
     def close(self) -> None:
         if self._wandb:

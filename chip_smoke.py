@@ -61,9 +61,36 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               Step time by CUDA events and on the host's clock in both dtypes,
               the loader's wait, peak memory, launches a step, layout
               conversions and the device's idle share
-              (`scripts/profile_torch_train_step.py`).
+              (`scripts/profile_torch_train_step.py`; the step's parts in
+              bf16).
+  7. train1f  the 1-frame hard-way trainer at the recipe's width (AVENet,
+              batch 20 middle frames at 224x224, 257x431 spectrograms):
+              `avtubes_torch.cli.train_hardway_1frame --synthetic` at its
+              default bfloat16 with `--record_qualitative 2` (finite losses,
+              cIoU and AUC in [0,1], a float32 checkpoint `hardway1frm_ep0`,
+              K1 once a step and once an eval batch, K2 once an eval batch,
+              the overlay JPEGs); the same float32 steps with the plain K1
+              give the same loss curve; step time in both dtypes.
+  8. tube3d   the 3D tube trainer at the recipe's width (ResNet3D-18 +
+              audio ResNet-18, 20 clips x 16 frames at 224x224, 257x431
+              spectrograms): `avtubes_torch.cli.train_3d --synthetic` at its
+              default bfloat16 takes a few steps and runs its per-frame test
+              (4 clips of 16 frames, each scored as one clip), with
+              `--record_qualitative 1` (finite loss and NP-ratio, cIoU, AUC
+              and mTC in [0,1], a float32 checkpoint `tube3d_ep0`, K1 once a
+              step and once a test video, K2 once a test video, the overlay
+              JPEGs); float32 steps with the plain K1 give the same loss curve
+              and the plain K1 + K2 the same per-frame masks (4 clips a step,
+              stated in the line); bf16 against float32 on the same seeded
+              weights at the bars of tests/test_bf16.py; eight bf16 steps
+              lower the loss;
+              a bf16 step's BatchNorm3d statistics against a float64 hand
+              computation with n/(n-1); step time, peak memory, launches,
+              layout conversions and idle share in both dtypes.
 
-Then one `{"kernels": [...]}` line (per kernel: launches on its main
+Each phase's line from `serve` on carries `part_seconds` (host clock),
+and a `{"phase": "seconds"}` line gives each phase's seconds.  Then one
+`{"kernels": [...]}` line (per kernel: launches on its main
 path, error against the plain version, measured times, and the least time
 the card could take), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`.
@@ -84,6 +111,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 
 import numpy as np
 import torch
@@ -144,6 +172,20 @@ OVERFIT_STEPS = 8
 OVERFIT_LR = 1e-4
 TIMED_STEPS = 5
 
+# the 1-frame trainer's recipe shapes
+T1F_BATCH = 20            # middle frames a step
+T1F_STEPS = 4             # CLI steps (the synthetic set holds 4 batches)
+T1F_RECORD = 2            # overlay JPEGs of the hard-way test
+
+# the 3D tube trainer's recipe shapes
+TUBE_BATCH = 20           # clips a step
+TUBE_FRAMES = 16          # frames a clip, one view
+TUBE_STEPS = 2            # CLI steps
+TUBE_EVAL_VIDEOS = 4      # the synthetic per-frame test: 4 clips, stride 1
+TUBE_EVAL_FRAMES = 14     # frames 1 .. 14 of each 16-frame clip are scored
+TUBE_CURVE_BATCH = 4      # clips a step of the plain-vs-kernel curve (time)
+TUBE_TIMED_STEPS = {"bfloat16": 5, "float32": 1}
+
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12   # CUDA cores; an FMA counts as two
@@ -151,6 +193,18 @@ PEAK_FP32_OPS_PER_S = 67e12   # CUDA cores; an FMA counts as two
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class Laps:
+    """Seconds on the host's clock between named marks."""
+
+    def __init__(self):
+        self.t, self.seconds = time.monotonic(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.monotonic()
+        self.seconds[name] = round(now - self.t, 2)
+        self.t = now
 
 
 def require(ok, message) -> None:
@@ -835,17 +889,23 @@ def bf16_vs_fp32(masks: np.ndarray, heat: np.ndarray, ref_masks: np.ndarray,
             "heatmap_max_abs_diff": float(np.abs(heat - ref_heat).max())}
 
 
+def perturb_running_stats(model: torch.nn.Module, gen: torch.Generator) -> torch.nn.Module:
+    """The running statistics of a trained net are not the identity: perturb
+    every BatchNorm's (mean ~ N(0, 0.05), var ~ U(0.8, 1.2)), in place."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
+                m.running_mean.normal_(0.0, 0.05, generator=gen)
+                m.running_var.uniform_(0.8, 1.2, generator=gen)
+    return model
+
+
 def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
     """Returns K1's and K2's launches on the served requests, by dtype."""
     cfg = SpectrogramConfig()
+    lap = Laps()
     gen = torch.Generator().manual_seed(SEED)
-    model = AVENet(generator=gen, compute_dtype="float32")
-    # running statistics of a trained net are not the identity: perturb them
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.normal_(0.0, 0.05, generator=gen)
-                m.running_var.uniform_(0.8, 1.2, generator=gen)
+    model = perturb_running_stats(AVENet(generator=gen, compute_dtype="float32"), gen)
     model_bf16 = AVENet(compute_dtype="bfloat16")
     model_bf16.load_state_dict(model.state_dict(), strict=True)
     blob = export_localizer(model, cfg, image_size=IMAGE_SIZE,
@@ -866,6 +926,7 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
             and runner_bf16.pipeline.model.compute_dtype == torch.bfloat16, runner_bf16.meta)
     runner_bf16.warmup()
     frames, waves = make_requests(cfg)
+    lap("export_load_warmup")
 
     # ---- the main path in bf16 (the export's default), then in float32
     masks_bf16, heat_bf16, stats_bf16, wall_bf16, launches_bf16 = serve_requests(
@@ -881,6 +942,7 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
     require(all(t.dtype == torch.float32 for t in out16), [t.dtype for t in out16])
     vs_fp32 = bf16_vs_fp32(masks_bf16, heat_bf16, masks, heat,
                            out16.logits.float().cpu().numpy(), out32.logits.cpu().numpy())
+    lap("requests")
 
     # ---- the same pipeline with the plain versions, on the card
     before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
@@ -906,6 +968,7 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
     nb_flips = max(int(np.abs(with_a[0][0] - with_b[0][0]).sum()),
                    int(np.abs(with_a[0][:5] - padded[0]).sum(axis=(1, 2)).max()))
     require(nb_heat <= 1e-5 and nb_flips <= MASK_FLIPS, (nb_heat, nb_flips))
+    lap("vs_plain_and_neighbours")
 
     # ---- where the time goes at batch 8 (CUDA events, stage by stage)
     net = runner.pipeline.model
@@ -936,8 +999,10 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
         for _ in range(10):
             runner.run(frames[:b], waves[:b])
         run_ms[str(b)] = (time.monotonic() - t0) * 1e3 / 10
+    lap("timing")
 
     http = serve_http(runner, frames, waves, cfg.samplerate)
+    lap("http")
     torch.backends.cudnn.benchmark = False     # the other phases run without it
     emit("serve", card=report, requests=N_REQUESTS, clients=N_CLIENTS,
          artifact_bytes=len(blob), load_and_warmup_s=round(warm_s, 2),
@@ -948,7 +1013,8 @@ def phase_serve(dev: torch.device, report: str) -> dict[str, dict[str, int]]:
          neighbour_heatmap_max_abs_diff=nb_heat, neighbour_max_flips=nb_flips,
          stage_ms_batch8=stage_ms, stage_kernel_ms_batch8=stage_kernel_ms,
          runner_run_ms_by_bucket_host_clock=run_ms,
-         peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **http)
+         peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **http,
+         part_seconds=lap.seconds)
     return {"bfloat16": launches_bf16, "float32": launches}
 
 
@@ -1023,6 +1089,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         warped_pairs,
     )
 
+    lap = Laps()
     with tempfile.TemporaryDirectory() as tmp:
         args = ["--synthetic", "--image_size", str(IMAGE_SIZE), "--batch_size",
                 str(FLOW_BATCH), "--epochs", "1", "--steps", str(FLOW_STEPS),
@@ -1059,6 +1126,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         require(pred.shape == (4, IMAGE_SIZE, IMAGE_SIZE, 2), pred.shape)
         require(epe(pred.cpu().numpy(), gt) == final["epe_affine"],
                 (epe(pred.cpu().numpy(), gt), final["epe_affine"]))
+        lap("cli_and_restore")
 
         # ---- (b) the same steps from the same init with the plain cost volume
         dir_plain = os.path.join(tmp, "plain")
@@ -1072,9 +1140,11 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         loss_rel = float(np.max(np.abs(np.array(losses) - plain_losses)
                                 / np.abs(plain_losses)))
         require(loss_rel <= FLOW_LOSS_RTOL, (losses, plain_losses))
+    lap("curve_vs_plain")
 
     # ---- (c) training recovers a known shift
     recovered = shift_recovery(dev)
+    lap("shift_recovery")
 
     # ---- step time at the recipe batch, and K3's share of it
     im1, im2, _ = translating_pairs(np.random.RandomState(SEED), FLOW_BATCH, IMAGE_SIZE)
@@ -1093,6 +1163,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
     step_host_ms = (time.monotonic() - t0) * 1e3 / 10
     plain_step_ms = cuda_ms(lambda: flow_pretrain_step(plain_state, im1, im2), iters=10)
     k3_ms = k3_times["ms_from_channels_first"] + k3_times["backward_ms"]
+    lap("timing")
     emit("flow", card=report, image_size=IMAGE_SIZE, batch=FLOW_BATCH,
          cli_steps=FLOW_STEPS, cli_seconds_host_clock=round(cli_s, 2),
          launches=launches, losses=losses, plain_losses=plain_losses,
@@ -1101,91 +1172,136 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
          step_ms_host_clock=step_host_ms, step_ms_plain_cost_volume=plain_step_ms,
          k3_forward_with_layout_copy_ms=k3_times["ms_from_channels_first"],
          k3_backward_ms=k3_times["backward_ms"], k3_share_of_step=k3_ms / step_ms,
+         part_seconds=lap.seconds,
          peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
     return launches
 
 
-def bn_hand_check(state, batch, cfg: SpectrogramConfig) -> dict:
-    """One bf16 step on the card with the image tower's last BatchNorm
-    watched: its running statistics must be two EMA steps (clean view, then
-    augmented) of the float32 batch statistics of its bf16 inputs, the
-    variance's with n/(n-1).  At the recipe's n = 62,720 values a channel
-    that factor is within the sums' rounding, so the same layer is also fed
-    one small bf16 batch (n = 18), where n/(n-1) is 6 %.  Returns the largest
-    relative errors."""
+def bn_vs_hand(bn, inputs, mean, var, unbiased: bool = True) -> float:
+    """Largest relative error of `bn`'s running statistics against EMA steps
+    (torch momentum 0.1), from (mean, var), of the float64 batch statistics
+    of each of `inputs` over every axis but the channels', the variance's
+    with n/(n-1) where `unbiased`."""
+    for x in inputs:
+        xd = x.double()
+        dims = [d for d in range(xd.ndim) if d != 1]
+        n = xd.numel() // xd.shape[1]
+        mean = 0.9 * mean + 0.1 * xd.mean(dim=dims)
+        var = 0.9 * var + 0.1 * xd.var(dim=dims, unbiased=False) * (
+            n / (n - 1) if unbiased else 1.0)
+    return max(float(((bn.running_mean.double() - mean).abs() / var.sqrt()).max()),
+               float(((bn.running_var.double() - var).abs() / var).max()))
+
+
+def bn_hand_check(bn, step, views: int, layout: torch.memory_format) -> dict:
+    """One bf16 step (`step()`) with `bn`, a BatchNorm of the image or video
+    tower, watched: its running statistics must be `views` EMA steps of the
+    float32 batch statistics of its bf16 inputs, the variance's with
+    n/(n-1).  At the recipe's n (62,720 values a channel) that factor is
+    within the sums' rounding, so a copy of the layer is also fed one small
+    bf16 batch (n = 18), where n/(n-1) is 6 %.  Returns the largest relative
+    errors."""
     import copy
 
-    from avtubes_torch.train.steps import hardway_fused_train_step
-
-    def hand(bn, inputs, mean, var, unbiased=True):
-        for x in inputs:
-            xd = x.double()
-            n = xd.numel() // xd.shape[1]
-            mean = 0.9 * mean + 0.1 * xd.mean(dim=(0, 2, 3))
-            var = 0.9 * var + 0.1 * xd.var(dim=(0, 2, 3), unbiased=False) * (
-                n / (n - 1) if unbiased else 1.0)
-        return max(float(((bn.running_mean.double() - mean).abs() / var.sqrt()).max()),
-                   float(((bn.running_var.double() - var).abs() / var).max()))
-
-    bn = state.model.imgnet.layer4[1].bn2
     small = copy.deepcopy(bn).train()
     seen = []
     hook = bn.register_forward_hook(lambda m, args, out: seen.append(args[0].detach()))
     mean, var = bn.running_mean.double(), bn.running_var.double()
     try:
-        hardway_fused_train_step(state, *batch, cfg, image_size=IMAGE_SIZE)
+        step()
     finally:
         hook.remove()
-    require([x.dtype for x in seen] == [torch.bfloat16] * 2, [x.dtype for x in seen])
+    require([x.dtype for x in seen] == [torch.bfloat16] * views, [x.dtype for x in seen])
     require(bn.running_mean.dtype == bn.running_var.dtype == torch.float32, bn.running_var.dtype)
-    step_err = hand(bn, seen, mean, var)
+    step_err = bn_vs_hand(bn, seen, mean, var)
     require(step_err <= BN_HAND_RTOL, f"bf16 step's BatchNorm statistics vs hand: {step_err}")
 
-    x = torch.randn(2, bn.num_features, 3, 3, device=bn.running_var.device,
+    shape = (2, bn.num_features, *([1] * (seen[0].ndim - 4)), 3, 3)     # n = 18 a channel
+    x = torch.randn(shape, device=bn.running_var.device,
                     generator=torch.Generator(bn.running_var.device).manual_seed(SEED)
-                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                    ).to(torch.bfloat16).contiguous(memory_format=layout)
     mean, var = small.running_mean.double(), small.running_var.double()
     out = small(x)
     require(out.dtype == torch.bfloat16 and small.running_var.dtype == torch.float32, out.dtype)
-    small_err = hand(small, [x], mean, var)
-    biased_err = hand(small, [x], mean, var, unbiased=False)
+    small_err = bn_vs_hand(small, [x], mean, var)
+    biased_err = bn_vs_hand(small, [x], mean, var, unbiased=False)
     require(small_err <= 1e-5 < 1e-3 <= biased_err, (small_err, biased_err))
     return {"recipe_step": step_err, "n18_unbiased": small_err, "n18_if_biased": biased_err}
 
 
-def time_step(state, batch, cfg: SpectrogramConfig, dev: torch.device) -> dict:
-    """Step time at the recipe batch by CUDA events and on the host's clock,
-    peak memory, and the profile (`scripts/profile_torch_train_step.py`)."""
-    from avtubes_torch.train.steps import hardway_fused_train_step
-    from profile_torch_train_step import profile_train_step, step_parts_ms
-
-    clips, waves, draws = batch
-
-    def step():
-        return hardway_fused_train_step(state, clips, waves, draws, cfg, image_size=IMAGE_SIZE)
+def timed(step, dev: torch.device, n: int) -> dict:
+    """Step time by CUDA events and on the host's clock over the same `n`
+    steps (after a warm one), the peak memory of a step, and the profile of
+    one step more (`scripts/profile_torch_train_step.py`)."""
+    from profile_torch_train_step import profile_train_step
 
     step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
     start.record()
-    for _ in range(TIMED_STEPS):
+    for _ in range(n):
         step()
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    host_ms = (time.monotonic() - t0) * 1e3 / n
+    step_ms = start.elapsed_time(end) / n
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    t0 = time.monotonic()
-    for _ in range(TIMED_STEPS):
-        step()
-    torch.cuda.synchronize()
-    host_ms = (time.monotonic() - t0) * 1e3 / TIMED_STEPS
-    profiled = profile_train_step(state, clips, waves, draws, cfg, IMAGE_SIZE, steps=1)
-    return {"train_step_ms": step_ms, "train_step_ms_host_clock": host_ms,
+    profiled = profile_train_step(step, steps=1, warm=False)
+    return {"train_step_ms": step_ms, "train_step_ms_host_clock": host_ms, "steps_timed": n,
             "max_memory_allocated_gib_step": peak_gib, "profile": profiled,
-            "k1_share_of_step": profiled["k1_kernel_ms_per_step"] / step_ms,
-            "step_parts_ms": step_parts_ms(state, clips, waves, draws, cfg, IMAGE_SIZE)}
+            "device_idle_share_by_events": 1.0 - profiled["device_busy_ms_per_step"] / step_ms,
+            "k1_share_of_step": profiled["k1_kernel_ms_per_step"] / step_ms}
+
+
+def time_step(state, batch, cfg: SpectrogramConfig, dev: torch.device,
+              parts: bool) -> dict:
+    """The flagship step at the recipe batch: `timed`, and its parts where
+    `parts` (the profile script gives them in any dtype)."""
+    from avtubes_torch.train.steps import hardway_fused_train_step
+    from profile_torch_train_step import step_parts_ms
+
+    clips, waves, draws = batch
+    out = timed(lambda: hardway_fused_train_step(state, clips, waves, draws, cfg,
+                                                 image_size=IMAGE_SIZE), dev, TIMED_STEPS)
+    if parts:
+        out["step_parts_ms"] = step_parts_ms(state, clips, waves, draws, cfg, IMAGE_SIZE)
+    return out
+
+
+def run_cli(main, args: list[str]) -> tuple[dict, dict[str, int], float, float]:
+    """A trainer's CLI as the main path: K1's and K2's counts set to 0 just
+    before and read just after; (final metrics, launches, seconds, peak GiB)."""
+    k1.log_spectrogram_cuda.launches = 0
+    k2.median_mask_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
+        final = main(args)
+    seconds = time.monotonic() - t0
+    launches = {"stft": k1.log_spectrogram_cuda.launches,
+                "median_select": k2.median_mask_cuda.launches}
+    return final, launches, seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_checkpoint(run_dir: str, tag: str) -> list[str]:
+    """The run's one checkpoint `<tag>_ep0`, its parameters and statistics
+    float32 whatever the compute dtype."""
+    ckpts = sorted(n for n in os.listdir(run_dir) if n.startswith(f"{tag}_ep"))
+    require(ckpts == [f"{tag}_ep0"], ckpts)
+    saved = torch.load(os.path.join(run_dir, ckpts[0]), map_location="cpu",
+                       weights_only=True)["params"]
+    require(all(t.dtype == (torch.int64 if k.endswith("num_batches_tracked")
+                            else torch.float32) for k, t in saved.items()),
+            "a bf16 run's checkpoint must hold float32 parameters and statistics")
+    return ckpts
+
+
+def plain_launches_nothing(before: tuple[int, int]) -> None:
+    require((k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches) == before,
+            "impl='plain' launched a kernel")
 
 
 def phase_train(dev: torch.device, report: str) -> dict[str, int]:
@@ -1197,10 +1313,10 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
     from avtubes_torch.train.state import create_train_state
     from avtubes_torch.train.steps import hardway_fused_train_step
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
     from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
+    lap = Laps()
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
         # the CLI's default command: bfloat16 backbones
@@ -1209,16 +1325,7 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
                 "--epochs", "1", "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
                 "--summaries_dir", run_dir]
         # ---- (a) the main path: the CLI trains, evaluates and checkpoints
-        k1.log_spectrogram_cuda.launches = 0
-        k2.median_mask_cuda.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.monotonic()
-        with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
-            final = train_cli.main(args)
-        cli_s = time.monotonic() - t0
-        launches = {"stft": k1.log_spectrogram_cuda.launches,
-                    "median_select": k2.median_mask_cuda.launches}
-        cli_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        final, launches, cli_s, cli_peak_gib = run_cli(train_cli.main, args)
         with open(os.path.join(run_dir, "hardway16.metrics.jsonl")) as fh:
             records = [json.loads(line) for line in fh]
         steps = [r for r in records if "loss" in r]
@@ -1231,13 +1338,8 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
         # one K1 launch a step and one an eval batch; one K2 launch an eval batch
         require(launches == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
                              "median_select": TRAIN_EVAL_BATCHES}, launches)
-        ckpts = sorted(n for n in os.listdir(run_dir) if n.startswith("hardway16_ep"))
-        require(ckpts == ["hardway16_ep0"], ckpts)
-        saved = torch.load(os.path.join(run_dir, ckpts[0]), map_location="cpu",
-                           weights_only=True)["params"]
-        require(all(t.dtype == (torch.int64 if k.endswith("num_batches_tracked")
-                                else torch.float32) for k, t in saved.items()),
-                "a bf16 run's checkpoint must hold float32 parameters and statistics")
+        ckpts = check_checkpoint(run_dir, "hardway16")
+        lap("cli")
 
         # ---- (d) the checkpoint as a serving artifact (bf16, the default), validated
         with contextlib.redirect_stdout(sys.stderr):
@@ -1248,6 +1350,7 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
         require(all(validation[k] == 0.0 for k in ("ciou_delta", "auc_delta",
                                                    "ciou_per_sample_max_delta",
                                                    "heatmap_max_abs_diff")), validation)
+        lap("export_and_validation")
 
     # ---- (b) float32 steps with the plain versions of K1 and K2
     batches = [recipe_batch(dev, TRAIN_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg, seed=SEED + i)
@@ -1265,6 +1368,7 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
     before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
     plain_losses, plain_state = curve("plain", recipe_lr, batches)
     del plain_state
+    plain_launches_nothing(before_plain)
     rel = float(np.max(np.abs(np.array(kernel_losses) - plain_losses) / np.abs(plain_losses)))
     require(rel <= TRAIN_LOSS_RTOL, (kernel_losses, plain_losses))
     frames8 = batches[1][0][:8, 0].contiguous()
@@ -1275,17 +1379,23 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
             == (before_plain[0] + 1, before_plain[1] + 1), "impl='plain' launched a kernel")
     flips = int((masks != plain_masks).sum(dim=(1, 2)).max())
     require(flips <= MASK_FLIPS, f"eval masks, kernels vs plain: {flips} flips")
+    lap("curve_and_masks_vs_plain")
 
     # ---- (c) eight bf16 steps on one batch lower the loss
     overfit, state_bf16 = curve("kernel", OVERFIT_LR, [batches[0]] * OVERFIT_STEPS, "bfloat16")
     require(np.isfinite(overfit).all() and overfit[-1] < overfit[0], overfit)
     require(all(p.dtype == torch.float32 for p in state_bf16.model.parameters()),
             "bf16 training changed a parameter's dtype")
-    bn_err = bn_hand_check(state_bf16, batches[1], cfg)
+    bn_err = bn_hand_check(
+        state_bf16.model.imgnet.layer4[1].bn2,
+        lambda: hardway_fused_train_step(state_bf16, *batches[1], cfg, image_size=IMAGE_SIZE),
+        2, torch.channels_last)       # two image views: two updates a step
+    lap("overfit_and_bn_by_hand")
 
     # ---- step time at the recipe batch, memory, launches and idle share, both dtypes
-    timed = {"bfloat16": time_step(state_bf16, batches[0], cfg, dev),
-             "float32": time_step(state, batches[0], cfg, dev)}
+    timed = {"bfloat16": time_step(state_bf16, batches[0], cfg, dev, parts=True),
+             "float32": time_step(state, batches[0], cfg, dev, parts=False)}
+    lap("timing")
     waits = [r["loader_wait_ms"] for r in steps]
     emit("train", card=report, batch=TRAIN_BATCH, frames=TRAIN_FRAMES, views=2,
          image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
@@ -1299,21 +1409,238 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
          loader_wait_ms_after_the_first=float(np.mean(waits[1:])),
          max_memory_allocated_gib_cli=cli_peak_gib,
          train_step_ms=timed["bfloat16"]["train_step_ms"],
-         train_step_ms_float32=timed["float32"]["train_step_ms"], by_dtype=timed)
+         train_step_ms_float32=timed["float32"]["train_step_ms"], by_dtype=timed,
+         part_seconds=lap.seconds)
+    return launches
+
+
+def one_frame_batch(dev: torch.device, seed: int):
+    """(middle frames (B, S, S, 3) uint8, int16 waveforms, flips) on the card."""
+    from profile_torch_train_step import recipe_batch
+
+    clips, waves, draws = recipe_batch(dev, T1F_BATCH, 1, IMAGE_SIZE, SpectrogramConfig(),
+                                       seed=seed)
+    return clips[:, 0].contiguous(), waves, draws.flip1
+
+
+def phase_train1f(dev: torch.device, report: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the 1-frame trainer's CLI run."""
+    from avtubes_torch.cli import train_hardway_1frame as cli
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import hardway_1frame_fused_step
+
+    cfg = SpectrogramConfig()
+    lap = Laps()
+    with tempfile.TemporaryDirectory() as run_dir:
+        # ---- (a) the main path at the CLI's default bfloat16
+        args = ["--synthetic", "--batch_size", str(T1F_BATCH), "--image_size", str(IMAGE_SIZE),
+                "--epochs", "1", "--steps", str(T1F_STEPS), "--seed", str(SEED),
+                "--record_qualitative", str(T1F_RECORD), "--summaries_dir", run_dir]
+        final, launches, cli_s, cli_peak_gib = run_cli(cli.main, args)
+        with open(os.path.join(run_dir, "hardway1frm.metrics.jsonl")) as fh:
+            losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
+        require(len(losses) == T1F_STEPS and np.isfinite(losses).all(), losses)
+        require(final["hardway_n"] == 8 and 0.0 <= final["hardway_ciou"] <= 1.0
+                and 0.0 <= final["hardway_auc"] <= 1.0, final)
+        require(launches == {"stft": T1F_STEPS + TRAIN_EVAL_BATCHES,
+                             "median_select": TRAIN_EVAL_BATCHES}, launches)
+        ckpts = check_checkpoint(run_dir, "hardway1frm")
+        images = sorted(os.listdir(os.path.join(run_dir, "images")))
+        require(len(images) == T1F_RECORD and all(n.endswith("_hardway_0.jpg") for n in images),
+                images)
+    lap("cli")
+
+    # ---- (b) float32 steps with the plain K1
+    batches = [one_frame_batch(dev, SEED + i) for i in range(CURVE_STEPS)]
+
+    def curve(impl: str, dtype: str = "float32"):
+        model = AVENet(generator=torch.Generator().manual_seed(SEED), compute_dtype=dtype)
+        state = create_train_state(model.to(dev), OptimConfig())
+        return [float(hardway_1frame_fused_step(state, f, w, fl, cfg, impl=impl)["loss"])
+                for f, w, fl in batches], state
+
+    kernel_losses, state = curve("kernel")
+    before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
+    plain_losses, _ = curve("plain")
+    plain_launches_nothing(before_plain)
+    rel = float(np.max(np.abs(np.array(kernel_losses) - plain_losses) / np.abs(plain_losses)))
+    require(rel <= TRAIN_LOSS_RTOL, (kernel_losses, plain_losses))
+    bf16_losses, state_bf16 = curve("kernel", "bfloat16")
+    require(np.isfinite(bf16_losses).all(), bf16_losses)
+    lap("curves")
+
+    timed_by_dtype = {
+        dtype: timed(lambda st=st: hardway_1frame_fused_step(st, *batches[0], cfg), dev,
+                     TIMED_STEPS)
+        for dtype, st in (("bfloat16", state_bf16), ("float32", state))}
+    lap("timing")
+    emit("train1f", card=report, batch=T1F_BATCH, image_size=IMAGE_SIZE,
+         spectrogram=list(cfg.shape), cli_dtype="bfloat16", cli_steps=T1F_STEPS,
+         cli_seconds_host_clock=round(cli_s, 2), launches=launches, losses=losses, final=final,
+         checkpoints=ckpts, images=images, max_memory_allocated_gib_cli=cli_peak_gib,
+         curve_dtype="float32", curve_kernel=kernel_losses, curve_plain=plain_losses,
+         curve_max_rel_diff_vs_plain=rel, curve_bf16=bf16_losses,
+         train_step_ms=timed_by_dtype["bfloat16"]["train_step_ms"],
+         train_step_ms_float32=timed_by_dtype["float32"]["train_step_ms"],
+         by_dtype=timed_by_dtype, part_seconds=lap.seconds)
+    return launches
+
+
+def phase_tube3d(dev: torch.device, report: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the 3D tube trainer's CLI run."""
+    from avtubes_torch.cli import train_3d as cli
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.fullmodel import FullModel
+    from avtubes_torch.train.evaluate import _perframe_masks
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import eval_mode, train3d_fused_step
+    from profile_torch_train_step import recipe_batch, tube3d_step_parts_ms
+
+    cfg = SpectrogramConfig()
+    torch.cuda.empty_cache()
+    lap = Laps()
+    with tempfile.TemporaryDirectory() as run_dir:
+        # ---- (a) the main path at the CLI's default bfloat16, with its per-frame test
+        args = ["--synthetic", "--batch_size", str(TUBE_BATCH), "--frame_density",
+                str(TUBE_FRAMES), "--image_size", str(IMAGE_SIZE), "--epochs", "1",
+                "--steps", str(TUBE_STEPS), "--seed", str(SEED), "--record_qualitative", "1",
+                "--summaries_dir", run_dir]
+        final, launches, cli_s, cli_peak_gib = run_cli(cli.main, args)
+        with open(os.path.join(run_dir, "tube3d.metrics.jsonl")) as fh:
+            steps = [r for r in map(json.loads, fh) if "loss" in r]
+        require(len(steps) == TUBE_STEPS
+                and all(np.isfinite([r["loss"], r["np_ratio"]]).all() for r in steps), steps)
+        require(all(np.isfinite(final[k]) and 0.0 <= final[k] <= 1.0
+                    for k in ("test_ciou", "test_auc", "test_mtc")), final)
+        require(launches == {"stft": TUBE_STEPS + TUBE_EVAL_VIDEOS,
+                             "median_select": TUBE_EVAL_VIDEOS}, launches)
+        ckpts = check_checkpoint(run_dir, "tube3d")
+        images = sorted(os.listdir(os.path.join(run_dir, "images")))
+        require(images == sorted(f"synthetic_0_test_frame_{f}_0.jpg"
+                                 for f in range(1, TUBE_EVAL_FRAMES + 1)), images)
+    lap("cli")
+
+    # ---- (b) float32 steps with the plain K1, and one video's masks with the plain K1 + K2
+    small = [recipe_batch(dev, TUBE_CURVE_BATCH, TUBE_FRAMES, IMAGE_SIZE, cfg, seed=SEED + i)
+             for i in range(CURVE_STEPS)]
+
+    def curve(impl: str, data, dtype: str = "float32", lr: float | None = None):
+        model = FullModel(generator=torch.Generator().manual_seed(SEED), compute_dtype=dtype)
+        optim = OptimConfig() if lr is None else OptimConfig(learning_rate=lr)
+        state = create_train_state(model.to(dev), optim)
+        return [float(train3d_fused_step(state, c, w, d.flip1, cfg, impl=impl)["loss"])
+                for c, w, d in data], state
+
+    kernel_losses, state = curve("kernel", small)
+    before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
+    plain_losses, _ = curve("plain", small)
+    plain_launches_nothing(before_plain)
+    rel = float(np.max(np.abs(np.array(kernel_losses) - plain_losses) / np.abs(plain_losses)))
+    require(rel <= TRAIN_LOSS_RTOL, (kernel_losses, plain_losses))
+    video, wave = small[1][0][0, 1:1 + TUBE_EVAL_FRAMES], small[1][1][0]
+    masks = _perframe_masks(state.model, video, wave, cfg, "3d")
+    plain_masks = _perframe_masks(state.model, video, wave, cfg, "3d", impl="plain")
+    plain_launches_nothing((before_plain[0] + 1, before_plain[1] + 1))
+    flips = int((masks != plain_masks).sum(dim=(1, 2)).max())
+    require(masks.shape == (TUBE_EVAL_FRAMES, MASK_SIZE, MASK_SIZE) and flips <= MASK_FLIPS,
+            f"per-frame masks, kernels vs plain: {flips} flips")
+    lap("curve_and_masks_vs_plain")
+
+    # ---- (c) bf16 against float32 on the same weights, seeded with perturbed
+    # running statistics as the served AVENet's (the bars of tests/test_bf16.py)
+    clips, waves = small[2][0][:2], small[2][1][:2]
+    gen = torch.Generator().manual_seed(SEED)
+    f32 = perturb_running_stats(FullModel(generator=gen), gen).to(dev)
+    bf16 = FullModel(generator=torch.Generator().manual_seed(SEED), compute_dtype="bfloat16")
+    bf16.load_state_dict(f32.state_dict())
+    bf16 = bf16.to(dev)
+    with eval_mode(f32), eval_mode(bf16):
+        v = normalize_imagenet(clips)
+        spec = log_spectrogram(waves, cfg)[..., None]
+        outs = [m.forward_shared_audio(spec, v) for m in (bf16, f32)]
+    (m16, h16, l16), (m32, h32, l32) = (
+        (heatmap_to_mask_batch(o.heatmap, impl="plain").cpu().numpy(),
+         o.heatmap.cpu().numpy(), o.logits.cpu().numpy()) for o in outs)
+    bars = bf16_vs_fp32(m16, h16, m32, h32, l16, l32)
+    del f32
+    lap("bf16_vs_fp32")
+
+    # ---- (d) eight bf16 steps on one recipe batch lower the loss
+    recipe = recipe_batch(dev, TUBE_BATCH, TUBE_FRAMES, IMAGE_SIZE, cfg, seed=SEED)
+    overfit, state_bf16 = curve("kernel", [recipe] * OVERFIT_STEPS, "bfloat16", OVERFIT_LR)
+    require(np.isfinite(overfit).all() and overfit[-1] < overfit[0], overfit)
+    require(all(p.dtype == torch.float32 for p in state_bf16.model.parameters()),
+            "bf16 training changed a parameter's dtype")
+
+    # ---- (e) a bf16 step's BatchNorm3d statistics by hand: one update a step
+    clips, waves, draws = recipe
+
+    def step_bf16():
+        return train3d_fused_step(state_bf16, clips, waves, draws.flip1, cfg)
+
+    bn_err = bn_hand_check(state_bf16.model.vidnet.layer4[1].bn2, step_bf16, 1,
+                           torch.channels_last_3d)
+    lap("overfit_and_bn_by_hand")
+
+    # ---- step time at the recipe batch, memory, launches, conversions, idle share
+    del state, bf16
+    torch.cuda.empty_cache()
+    by_dtype = {"bfloat16": timed(step_bf16, dev, TUBE_TIMED_STEPS["bfloat16"])}
+    by_dtype["bfloat16"]["step_parts_ms"] = tube3d_step_parts_ms(state_bf16, clips, waves,
+                                                                 draws.flip1, cfg)
+    lap("timing_bfloat16")
+    del state_bf16
+    torch.cuda.empty_cache()
+    _, state32 = curve("kernel", [], "float32")
+    by_dtype["float32"] = timed(
+        lambda: train3d_fused_step(state32, clips, waves, draws.flip1, cfg), dev,
+        TUBE_TIMED_STEPS["float32"])
+    del state32
+    torch.cuda.empty_cache()
+    lap("timing_float32")
+    emit("tube3d", card=report, batch=TUBE_BATCH, frames=TUBE_FRAMES, views=1,
+         image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
+         cli_steps=TUBE_STEPS, cli_eval_videos=TUBE_EVAL_VIDEOS,
+         cli_seconds_host_clock=round(cli_s, 2), launches=launches, steps=steps, final=final,
+         checkpoints=ckpts, images=len(images), max_memory_allocated_gib_cli=cli_peak_gib,
+         curve_dtype="float32", curve_batch=TUBE_CURVE_BATCH, curve_kernel=kernel_losses,
+         curve_plain=plain_losses, curve_max_rel_diff_vs_plain=rel,
+         perframe_mask_flips_vs_plain=flips, bf16_vs_fp32=bars, overfit_dtype="bfloat16",
+         overfit_lr=OVERFIT_LR, overfit_losses=overfit,
+         bn3d_running_stats_vs_hand_max_rel_err=bn_err,
+         train_step_ms=by_dtype["bfloat16"]["train_step_ms"],
+         train_step_ms_float32=by_dtype["float32"]["train_step_ms"], by_dtype=by_dtype,
+         part_seconds=lap.seconds)
     return launches
 
 
 def main() -> int:
     t_start = time.monotonic()
+    lap = Laps()
     dev, report = phase_device()
+    lap("device")
     phase_build()
+    lap("build")
     results = phase_kernels(dev)
+    lap("kernels")
     served = phase_serve(dev, report)
+    lap("serve")
     flow_launches = phase_flow(dev, report, results["correlation"])
+    lap("flow")
     train_launches = phase_train(dev, report)
+    lap("train")
+    train1f_launches = phase_train1f(dev, report)
+    lap("train1f")
+    tube3d_launches = phase_tube3d(dev, report)
+    lap("tube3d")
+    emit("seconds", by_phase=lap.seconds)
+    sys.stderr.write(f"chip_smoke: seconds by phase {lap.seconds}\n")
     # each path's count, taken with the counts set to 0 just before it
     by_path = {key: {"serve_bf16": served["bfloat16"][key],
-                     "serve_fp32": served["float32"][key], "train": train_launches[key]}
+                     "serve_fp32": served["float32"][key], "train": train_launches[key],
+                     "train_1frame": train1f_launches[key],
+                     "train_3d": tube3d_launches[key]}
                for key in ("stft", "median_select")}
     by_path["correlation"] = {"flow": flow_launches["forward"]}
     results["correlation"]["backward_launches"] = flow_launches["backward"]

@@ -147,7 +147,7 @@ def train(dev, compute_dtype: str, channels_last: bool, cfg: SpectrogramConfig,
         torch.cuda.reset_peak_memory_stats(dev)
         out = {"train_step_ms": events_ms(step, steps, warmup=1),
                "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
-        prof = profile_train_step(state, clips, waves, draws, cfg, IMAGE_SIZE, steps=2)
+        prof = profile_train_step(step, steps=2)
     finally:
         train_steps.augment_train_batch = own
     loss = float(step()["loss"])

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Where one flagship hard-way training step of the PyTorch/CUDA port spends
-the card's time.
+"""Where one training step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_torch_train_step.py [--batch 20] [--frames 16]
+    python3 scripts/profile_torch_train_step.py [--model hardway|tube3d]
+                                                [--batch 20] [--frames 16]
                                                 [--image_size 224] [--steps 2]
                                                 [--compute_dtype bfloat16]
+                                                [--layout channels_last|contiguous]
                                                 [--out DIR]
 
 Makes one synthetic recipe batch on the card (uint8 clips of `--frames`
-frames, int16 waveforms of 10 s at 22.05 kHz), one set of augmentation
-draws and a seeded AVENet train state (`avtubes_torch`, backbones in
-`--compute_dtype`, TF32 off),
-runs `--steps` calls of `hardway_fused_train_step` under `torch.profiler`
-(CPU + CUDA activities) and prints one JSON line: wall time per step on the
-host's clock, the device's busy time per step (sum of kernel and memcpy
-device time), the idle share that follows from the two, device launches per
-step, the device time of the hand-written K1 kernel, of cuDNN's NHWC<->NCHW
-layout conversions and of the fifteen most expensive kernels, CUDA-event times of the step's parts (spectrogram,
-augmentation, forward + loss, backward, optimizer) and the peak device
-memory of a step.  With `--out` it also writes the Chrome trace there.
-Needs one CUDA card; exits non-zero without one.
+frames, int16 waveforms of 10 s at 22.05 kHz), its random draws and a
+seeded train state (`avtubes_torch`, backbones in `--compute_dtype`, TF32
+off) of the model's trainer: `hardway`, the flagship 16-frame two-view
+step of AVENet (`hardway_fused_train_step`), or `tube3d`, the 3D tube step
+of FullModel (`train3d_fused_step`, view 1 only).  It runs `--steps` steps
+under `torch.profiler` (CPU + CUDA activities) and prints one JSON line:
+wall time per step on the host's clock, the device's busy time per step
+(sum of kernel and memcpy device time), the idle share that follows from
+the two, device launches per step, the device time of the hand-written K1
+kernel, of cuDNN's layout conversions (NCHW<->NHWC, and their 3-D kinds)
+and of BatchNorm's kernels, the fifteen most expensive kernels, CUDA-event
+times of the step's parts (spectrogram, augmentation, forward + loss,
+backward, optimizer) and the peak device memory of a step.  `--layout
+contiguous` turns the backbones' activations and conv weights from
+channels-last (the port's only layout) to plain NCHW / NCDHW, to measure
+what the layout costs.  With `--out` it also writes the Chrome trace there.  Needs one CUDA card; exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -37,11 +43,20 @@ import torch
 from avtubes_torch.core.config import OptimConfig
 from avtubes_torch.core.device import device_report, resolve_device
 from avtubes_torch.data.spectrogram import SpectrogramConfig, log_spectrogram
-from avtubes_torch.data.transforms import augment_train_batch, sample_augment_draws
+from avtubes_torch.data.transforms import (
+    augment_train_batch,
+    augment_view1,
+    sample_augment_draws,
+)
 from avtubes_torch.losses.losses import consistency_l2, hardway_loss, propagation_loss
 from avtubes_torch.models.avenet import AVENet
+from avtubes_torch.models.fullmodel import FullModel
 from avtubes_torch.train.state import create_train_state
-from avtubes_torch.train.steps import _fold_time, hardway_fused_train_step
+from avtubes_torch.train.steps import (
+    _fold_time,
+    hardway_fused_train_step,
+    train3d_fused_step,
+)
 
 
 def cuda_ms(fn, iters: int = 3, warmup: int = 1) -> float:
@@ -71,20 +86,22 @@ def recipe_batch(dev: torch.device, batch: int, frames: int, image_size: int,
     return clips, waves, draws
 
 
-#: name parts of cuDNN's layout-conversion kernels
-LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw")
+#: name parts of cuDNN's layout-conversion kernels (2-D and 3-D)
+LAYOUT_CONVERSIONS = ("nchwToNhwc", "nhwcToNchw", "ncdhwToNdhwc", "ndhwcToNcdhw")
+#: name parts of BatchNorm's kernels (PyTorch's native ones and cuDNN's)
+BATCHNORM = ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")
 
 
-def profile_train_step(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
-                       image_size: int, steps: int = 2, out: str | None = None) -> dict:
-    """Profile `steps` fused steps of `state` on one resident batch; returns
-    the busy/idle/launch breakdown (see the module docstring)."""
+def profile_train_step(step, steps: int = 2, out: str | None = None,
+                       warm: bool = True) -> dict:
+    """Profile `steps` calls of `step()` (one training step on a resident
+    batch), after a warm one unless the caller has just run it; returns the
+    busy/idle/launch breakdown (see the module docstring)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = lambda: hardway_fused_train_step(state, clips, waves, draws, spec_cfg,  # noqa: E731
-                                            image_size=image_size)
-    step()
+    if warm:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -123,6 +140,8 @@ def profile_train_step(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
         "layout_conversion_kernels": [
             {"name": k[:120], "ms": ms, "calls": calls} for k, ms, calls in rows
             if any(n in k for n in LAYOUT_CONVERSIONS)],
+        "batchnorm_ms_per_step": sum(
+            ms for k, ms, _ in rows if any(n in k.lower() for n in BATCHNORM)),
         "top_kernels_ms_per_step": [
             {"name": k[:80], "ms": ms, "calls": calls} for k, ms, calls in rows[:15]],
     }
@@ -149,7 +168,29 @@ def step_parts_ms(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
 
     model.train()
     parts["two_view_forward_and_loss"] = cuda_ms(forward_loss)
+    return _backward_and_adam(state, forward_loss, parts)
 
+
+def tube3d_step_parts_ms(state, clips, waves, flip1, spec_cfg: SpectrogramConfig) -> dict:
+    """CUDA-event times of the 3D tube step's parts, each alone."""
+    model = state.model
+    with torch.no_grad():
+        spec = log_spectrogram(waves, spec_cfg)[..., None]
+        video = augment_view1(clips, flip1)
+    parts = {"log_spectrogram_K1": cuda_ms(lambda: log_spectrogram(waves, spec_cfg)),
+             "augment_view1": cuda_ms(lambda: augment_view1(clips, flip1))}
+
+    def forward_loss():
+        return hardway_loss(model.forward_shared_audio(spec, video).logits)
+
+    model.train()
+    parts["forward_and_loss"] = cuda_ms(forward_loss)
+    return _backward_and_adam(state, forward_loss, parts)
+
+
+def _backward_and_adam(state, forward_loss, parts: dict) -> dict:
+    """`parts` with the times of forward + loss + backward and of the Adam
+    update."""
     def forward_backward():
         state.optimizer.zero_grad(set_to_none=True)
         forward_loss().backward()
@@ -162,11 +203,13 @@ def step_parts_ms(state, clips, waves, draws, spec_cfg: SpectrogramConfig,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", default="hardway", choices=("hardway", "tube3d"))
     p.add_argument("--batch", type=int, default=20)
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
+    p.add_argument("--layout", default="channels_last", choices=("channels_last", "contiguous"))
     p.add_argument("--out", default=None, help="directory for the Chrome trace")
     a = p.parse_args(argv)
 
@@ -174,19 +217,35 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")                       # the card, or an error
     spec_cfg = SpectrogramConfig()
-    model = AVENet(generator=torch.Generator().manual_seed(0),
-                   compute_dtype=a.compute_dtype).to(dev)
+    net = AVENet if a.model == "hardway" else FullModel
+    model = net(generator=torch.Generator().manual_seed(0), compute_dtype=a.compute_dtype)
+    if a.layout == "contiguous":
+        for backbone in model.children():
+            backbone.memory_format = torch.contiguous_format
+        model.to(memory_format=torch.contiguous_format)
+    model = model.to(dev)
     state = create_train_state(model, OptimConfig())
     clips, waves, draws = recipe_batch(dev, a.batch, a.frames, a.image_size, spec_cfg)
+    if a.model == "hardway":
+        def step():
+            return hardway_fused_train_step(state, clips, waves, draws, spec_cfg,
+                                            image_size=a.image_size)
+
+        def parts():
+            return step_parts_ms(state, clips, waves, draws, spec_cfg, a.image_size)
+    else:
+        def step():
+            return train3d_fused_step(state, clips, waves, draws.flip1, spec_cfg)
+
+        def parts():
+            return tube3d_step_parts_ms(state, clips, waves, draws.flip1, spec_cfg)
     torch.cuda.reset_peak_memory_stats(dev)
-    report = profile_train_step(state, clips, waves, draws, spec_cfg, a.image_size,
-                                a.steps, a.out)
+    report = profile_train_step(step, a.steps, a.out)
     report["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    report["cuda_event_ms"] = step_parts_ms(state, clips, waves, draws, spec_cfg,
-                                            a.image_size)
-    print(json.dumps({"card": device_report(), "batch": a.batch, "frames": a.frames,
-                      "image_size": a.image_size, "compute_dtype": a.compute_dtype,
-                      **report}))
+    report["cuda_event_ms"] = parts()
+    print(json.dumps({"card": device_report(), "model": a.model, "batch": a.batch,
+                      "frames": a.frames, "image_size": a.image_size,
+                      "compute_dtype": a.compute_dtype, "layout": a.layout, **report}))
     return 0
 
 

@@ -27,7 +27,9 @@ def test_expected_modules_exist():
                  "core.config", "utils.logging", "cli.flow", "losses.losses",
                  "train.steps", "train.evaluate", "train.hardway", "evaluation.metrics",
                  "evaluation.gt", "data.index", "data.pipeline", "data.synthetic",
-                 "core.reference_checkpoint", "cli.train_hardway", "cli.export_model"):
+                 "core.reference_checkpoint", "cli.train_hardway", "cli.export_model",
+                 "utils.visual", "models.resnet3d", "models.fullmodel", "train.train3d",
+                 "train.hardway_1frame", "cli.train_3d", "cli.train_hardway_1frame"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -67,6 +69,7 @@ def test_light_module_import_stays_light():
                                   ROOT / "scripts" / "profile_torch_flow_step.py",
                                   ROOT / "scripts" / "profile_torch_train_step.py",
                                   ROOT / "scripts" / "profile_torch_kernel_variants.py",
+                                  ROOT / "scripts" / "profile_torch_dtype_matrix.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
@@ -195,6 +198,19 @@ def test_default_device_raises_without_a_card(tmp_path):
         [sys.executable, "-m", "avtubes_torch.cli.serve", "--model", str(model_path),
          "--port", "0"], cwd=ROOT, text=True, capture_output=True, timeout=300)
     assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+
+
+@pytest.mark.parametrize("cli", ["train_3d", "train_hardway_1frame"])
+def test_the_new_trainers_default_to_the_card(tmp_path, cli):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", f"avtubes_torch.cli.{cli}", "--synthetic", "--image_size", "32",
+         "--frame_density", "2", "--batch_size", "2", "--samplerate", "8000",
+         "--audio_seconds", "1", "--steps", "1", "--summaries_dir", str(tmp_path)],
+        cwd=ROOT, text=True, capture_output=True, timeout=300)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert "final:" not in out.stdout and not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

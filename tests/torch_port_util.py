@@ -35,8 +35,60 @@ def jax_state(seed: int = 0, seconds: int = 1):
         model, jax.random.PRNGKey(seed),
         (jnp.zeros((2, IMG, IMG, 3)), jnp.zeros((2, *jcfg.shape, 1))),
         cfg.optim, 4)
+    return perturbed(state, seed)
+
+
+def jax_fullmodel_state(seed: int = 0, optim=None, dtype=jnp.float32):
+    """A full-width JAX FullModel train state (backbones in `dtype`) whose
+    weights are made with numpy from `seed`: He fan-out normal kernels,
+    BatchNorm scale 1, and the noise of `perturbed` on the biases and
+    running statistics.  The tree's structure comes from `jax.eval_shape`
+    (nothing is compiled); `optim` (default: the recipe's) makes its
+    optimizer."""
+    from avtubes.models import FullModel as JaxFullModel
+    from avtubes.train.state import AVTrainState, make_optimizer
+
+    jcfg, _ = spec_cfgs()
+    cfg = ExperimentConfig()
+    model = JaxFullModel(hardway=cfg.hardway, dtype=dtype)
+    shapes = jax.eval_shape(
+        lambda r, a, v: model.init(r, a, v, train=False), jax.random.PRNGKey(seed),
+        jnp.zeros((1, *jcfg.shape, 1)), jnp.zeros((1, 1, IMG, IMG, 3)))
+    variables = numpy_init(shapes, seed)
+    state = AVTrainState.create(apply_fn=model.apply, params=variables["params"],
+                                tx=make_optimizer(optim or cfg.optim, 4),
+                                batch_stats=variables["batch_stats"])
+    return perturbed(state, seed)
+
+
+def numpy_init(shapes, seed: int) -> dict:
+    """Values for a flax variable tree of `jax.eval_shape` leaves, made with
+    numpy from `seed`: He fan-out normal kernels, BatchNorm scale and
+    running variance 1, biases and running means 0."""
+    rng = np.random.RandomState(seed)
+
+    def init(path, leaf):
+        name = path[-1].key
+        if name == "kernel":        # (..., C_in, C_out): fan-out = receptive field x C_out
+            fan_out = int(np.prod(leaf.shape[:-2])) * leaf.shape[-1]
+            return (rng.randn(*leaf.shape) * np.sqrt(2.0 / fan_out)).astype(np.float32)
+        fill = 1.0 if name in ("scale", "var") else 0.0
+        return np.full(leaf.shape, fill, np.float32)
+
+    return jax.tree_util.tree_map_with_path(init, shapes)
+
+
+def perturbed(state, seed: int):
+    """`state` with numpy noise on its running statistics and BatchNorm
+    biases, so that no BatchNorm is the identity."""
+    return state.replace(**perturbed_variables(
+        {"params": state.params, "batch_stats": state.batch_stats}, seed))
+
+
+def perturbed_variables(variables, seed: int) -> dict:
+    """`perturbed` on a `{'params', 'batch_stats'}` tree."""
     rng = np.random.RandomState(seed + 100)
-    stats = jax.device_get(state.batch_stats)
+    stats = jax.device_get(variables["batch_stats"])
 
     def bump_stats(path, a):
         a = np.asarray(a)
@@ -52,14 +104,31 @@ def jax_state(seed: int = 0, seconds: int = 1):
 
     stats = jax.tree_util.tree_map_with_path(bump_stats, stats)
     params = jax.tree_util.tree_map_with_path(bump_params,
-                                              jax.device_get(state.params))
-    return state.replace(params=params, batch_stats=stats)
+                                              jax.device_get(variables["params"]))
+    return {"params": params, "batch_stats": stats}
 
 
 def numpy_variables(state) -> dict:
     """What the port's bridge takes: plain nested dicts of numpy arrays."""
     return jax.device_get({"params": state.params,
                            "batch_stats": state.batch_stats})
+
+
+def port_fullmodel(state, compute_dtype: str = "float32"):
+    """The port's FullModel in eval mode with the JAX state's weights."""
+    from avtubes_torch.core.convert import fullmodel_from_flax
+    from avtubes_torch.models.fullmodel import FullModel
+
+    model = FullModel(generator=torch.Generator().manual_seed(1), compute_dtype=compute_dtype)
+    model.load_state_dict(fullmodel_from_flax(numpy_variables(state)), strict=True)
+    return model.eval()
+
+
+def flips_from_jax_key(key, b: int) -> torch.Tensor:
+    """The flips `avtubes.train.steps.hardway_1frame_fused_step` draws from
+    `key`: one Bernoulli(0.5) from each of `jax.random.split(key, b)`."""
+    return torch.tensor([bool(jax.random.bernoulli(k, 0.5))
+                         for k in jax.random.split(key, b)])
 
 
 def port_model(state, compute_dtype: str = "float32") -> AVENet:
@@ -97,3 +166,57 @@ def augment_draws_from_jax_key(key, b: int, clip_size: int, image_size: int,
         **{name: torch.tensor(cols[name], dtype=torch.float32)
            for name in ("brightness", "contrast", "saturation", "hue")},
         order=torch.tensor(cols["order"]), flip2=torch.tensor(cols["flip2"]))
+
+
+def eager_adam_update(state, call, convert) -> tuple[dict, dict]:
+    """The JAX package's audio-tower gradient of the hard-way loss, taken
+    WITHOUT jit (jax 0.9.0's jitted audio gradient on the CPU is wrong:
+    ROADMAP host facts), and the parameters its optimizer makes of it.
+
+    `call(variables)` applies the JAX model in train mode and returns its
+    HardwayOutput; `convert` is the bridge into the port's names.  Returns
+    ({port name: gradient}, {port name: parameter after one update}) for the
+    audio tower.  Only the audio tower is differentiated, which halves the
+    eager backward."""
+    import optax
+
+    from avtubes.losses import hardway_loss
+
+    def loss(aud):
+        return hardway_loss(call({"params": {**state.params, "audnet": aud},
+                                  "batch_stats": state.batch_stats}).logits)
+
+    with jax.disable_jit():
+        aud_grads = jax.device_get(jax.grad(loss)(state.params["audnet"]))
+    params = jax.device_get(state.params)
+    grads = {**jax.tree_util.tree_map(np.zeros_like, params), "audnet": aud_grads}
+    updates, _ = state.tx.update(grads, state.tx.init(params), params)
+    stats = numpy_variables(state)["batch_stats"]
+    new = jax.device_get(optax.apply_updates(params, updates))
+    g, p = (convert({"params": tree, "batch_stats": stats}) for tree in (grads, new))
+    names = [k for k in g if k.startswith("audnet.")
+             and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+    return {k: g[k] for k in names}, {k: p[k] for k in names}
+
+
+def assert_relative_by_tensor(got: dict, want: dict, tol: float) -> None:
+    """max |got - want| / max |want| <= tol for every tensor of `want`."""
+    errs = {k: float((got[k] - v).abs().max() / v.abs().max()) for k, v in want.items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    assert worst[1] <= tol, worst
+
+
+def assert_adam_update_follows(named, want: dict, before: dict, lr: float) -> None:
+    """Adam's first update is lr * g / (|g| + eps): every weight in `named`
+    moved as in `want` to within 2 lr, and all but 1e-3 of those that moved
+    to within lr / 100 (the rest have eps-sized gradients whose sign float
+    noise decides)."""
+    moved, split, total = 0, 0, 0
+    for name, p in named:
+        diff = (p.detach() - want[name]).abs()
+        assert float(diff.max()) <= 2 * lr * (1 + 1e-3), (name, float(diff.max()))
+        moved += int(((want[name] - before[name]).abs() > 0.5 * lr).sum())
+        split += int((diff > 1e-2 * lr).sum())
+        total += p.numel()
+    assert moved > 0.99 * total, (moved, total)
+    assert split <= 1e-3 * moved, (split, moved)
