@@ -15,16 +15,14 @@ and the last per-frame test's metrics.
 
 import sys
 
-import torch
-
 from avtubes_torch.core.config import ExperimentConfig
+from avtubes_torch.core.device import disable_tf32
 from avtubes_torch.train.train3d import run
 
 
 def main(argv=None):
     cfg = ExperimentConfig.from_args(list(sys.argv[1:] if argv is None else argv))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     metrics = run(cfg, steps_cap=cfg.train.steps_cap)
     print("final:", metrics)
     return metrics

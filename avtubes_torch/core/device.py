@@ -35,6 +35,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def disable_tf32() -> None:
+    """Float32 matrix products and convolutions in full float32 precision,
+    as the JAX package computes them; every CLI of the port sets this."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def device_report() -> str:
     """Card name and power limit, one line per card, as printed by
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.

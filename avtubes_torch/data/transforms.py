@@ -177,6 +177,12 @@ def _normalize01(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+def denormalize_imagenet(x: torch.Tensor) -> torch.Tensor:
+    """ImageNet-normalized float32 (..., 3) -> [0,1]: `x * std + mean`."""
+    mean, std = _imagenet_stats(x.device)
+    return x * std + mean
+
+
 def _per_sample(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(n,) -> (n, 1, ..., 1) on `like`'s device, to broadcast over a sample."""
     return v.to(like.device).view(-1, *([1] * (like.ndim - 1)))

@@ -12,10 +12,10 @@ objective:
 The convention matters: `flow_warp(x, f)[p] = x[p + f(p)]` (backward warp),
 so the net learns the field that pulls im1 forward onto im2.
 
-Pairs come from a translating-pattern generator and from random affine and
-two-object fields, where the true flow is known.  Pairs of consecutive
-frames of real training clips (`_clip_pair_batches`) are not ported yet:
-`run_pretrain` raises for `synthetic=False`.
+Synthetic pairs come from a translating-pattern generator and from random
+affine and two-object fields, where the true flow is known; real ones are
+pairs of consecutive frames of the training clips (`_clip_pair_batches`),
+B·(T−1) a batch of B clips.
 
 The step differentiates through the correlation cost volume, so on the card
 it runs the hand-written forward kernel once and the backward kernel twice
@@ -223,15 +223,11 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
     """Unsupervised FlowNetLite pretraining loop with checkpointing, on
     `cfg.train.device`.
 
-    Synthetic pairs only: translating patterns and random fields with known
-    ground truth, logged as an EPE on a fixed held-out probe.
+    Real data: consecutive-frame pairs from training clips.  Synthetic:
+    translating patterns and random fields with known ground truth, logged
+    as an EPE on a fixed held-out probe.
     """
     d, o = cfg.data, cfg.optim
-    if not d.synthetic:
-        raise NotImplementedError(
-            "flow pretraining on real clips needs consecutive-frame pairs from "
-            "the data pipeline (flow_pretrain.py::_clip_pair_batches), which is "
-            "not ported yet (ROADMAP.md Queue 1 item 10); run with --synthetic")
     device = resolve_device(cfg.train.device)
     state = create_flow_state(torch.Generator().manual_seed(cfg.train.seed + 11),
                               learning_rate, device=device, impl=impl)
@@ -247,14 +243,20 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
     logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
     guard = PreemptionGuard()
     last: dict = {}
-    # a fixed held-out probe with known NON-CONSTANT ground truth, so
-    # training reports a real EPE (not just the photometric loss)
-    probe = {k: warped_pairs(np.random.RandomState(1234 + i), 4, d.image_size, kind=k)
-             for i, k in enumerate(("affine", "two_object"))}
+    # synthetic mode: a fixed held-out probe with known NON-CONSTANT ground
+    # truth, so training reports a real EPE (not just the photometric loss)
+    probe = {}
+    if d.synthetic:
+        probe = {k: warped_pairs(np.random.RandomState(1234 + i), 4, d.image_size, kind=k)
+                 for i, k in enumerate(("affine", "two_object"))}
     for epoch in range(start_epoch, o.epochs):
+        if d.synthetic:
+            batches = _synthetic_pair_batches(cfg, epoch, steps_cap or 50)
+        else:
+            batches = _clip_pair_batches(cfg, epoch)
         step_in_epoch = 0
         metrics = None
-        for im1, im2 in _synthetic_pair_batches(cfg, epoch, steps_cap or 50):
+        for im1, im2 in batches:
             if steps_cap and step_in_epoch >= steps_cap:
                 break
             metrics = flow_pretrain_step(
@@ -273,8 +275,9 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
                     pred = state.model(torch.from_numpy(p1).to(device),
                                        torch.from_numpy(p2).to(device))
                     last[f"epe_{kind}"] = epe(pred.cpu().numpy(), gt)
-            logger.log(step=state.step, epoch=epoch,
-                       **{k: v for k, v in last.items() if k.startswith("epe_")})
+            if probe:
+                logger.log(step=state.step, epoch=epoch,
+                           **{k: v for k, v in last.items() if k.startswith("epe_")})
         if guard.preempted:
             save_checkpoint(cfg.train.summaries_dir, tag, epoch - 1, state)
             # (epoch-1 may be -1: a resume then restarts at epoch 0 —
@@ -301,4 +304,24 @@ def _synthetic_pair_batches(cfg: ExperimentConfig, epoch: int, steps: int):
         else:
             im1, im2, _ = warped_pairs(rng, cfg.optim.batch_size,
                                        cfg.data.image_size, kind)
+        yield im1, im2
+
+
+def _clip_pair_batches(cfg: ExperimentConfig, epoch: int):
+    """Consecutive-frame pairs from the training clips, in [0,1], on the
+    host: (B·(T−1), H, W, 3) twice a batch of B clips of T frames."""
+    from avtubes_torch.data.pipeline import BatchLoader
+    from avtubes_torch.train.hardway import build_sources
+
+    train_src, _, _ = build_sources(cfg)
+    loader = BatchLoader(train_src, cfg.optim.batch_size,
+                         num_workers=cfg.data.n_threads, shuffle=True,
+                         seed=cfg.train.seed)
+    for batch in loader.epoch(epoch):
+        clip = batch["clip"].astype(np.float32) / 255.0  # (B,T,H,W,3)
+        if clip.shape[1] < 2:
+            continue
+        b, t = clip.shape[:2]
+        im1 = clip[:, :-1].reshape(b * (t - 1), *clip.shape[2:])
+        im2 = clip[:, 1:].reshape(b * (t - 1), *clip.shape[2:])
         yield im1, im2

@@ -17,7 +17,7 @@ from collections.abc import Callable, Iterable
 import torch
 from torch import nn
 
-from avtubes_torch.core.config import OptimConfig
+from avtubes_torch.core.config import ExperimentConfig, OptimConfig
 
 
 def make_lr_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -68,3 +68,27 @@ def create_train_state(model: nn.Module, optim_cfg: OptimConfig,
                        steps_per_epoch: int = 1) -> TrainState:
     optimizer, scheduler = make_optimizer(model.parameters(), optim_cfg, steps_per_epoch)
     return TrainState(model, optimizer, scheduler)
+
+
+def restore_for_tag(cfg: ExperimentConfig, tag: str, device: torch.device,
+                    missing: str | None = None) -> tuple[TrainState, int]:
+    """The state of the trainer that writes `<tag>_ep<N>` (a tag starting
+    with `tube`: FullModel, any other: AVENet; seeded, on `device`), restored
+    from `--pretrained_path` or the newest such checkpoint of
+    `--summaries_dir`: (state, epoch).  Prints `loaded <path> (epoch N)`,
+    or `WARNING: no checkpoint found — <missing>` where there is none."""
+    # these modules import this one
+    from avtubes_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
+    from avtubes_torch.train import hardway, train3d
+
+    build = train3d.build_model if tag.startswith("tube") else hardway.build_model
+    state = create_train_state(build(cfg, torch.Generator().manual_seed(0)).to(device),
+                               cfg.optim)
+    ckpt = cfg.train.pretrained_path or latest_checkpoint(cfg.train.summaries_dir, tag)
+    if not ckpt:
+        if missing:
+            print(f"WARNING: no checkpoint found — {missing}")
+        return state, 0
+    state, epoch = restore_checkpoint(ckpt, state)
+    print(f"loaded {ckpt} (epoch {epoch})")
+    return state, epoch

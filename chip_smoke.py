@@ -58,11 +58,11 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               float32 hand computation with n/(n-1), the same float32 steps
               with the plain versions of K1 and K2 give the same loss curve
               and masks, and eight bf16 steps on one batch lower the loss.
-              Step time by CUDA events and on the host's clock in both dtypes,
-              the loader's wait, peak memory, launches a step, layout
-              conversions and the device's idle share
-              (`scripts/profile_torch_train_step.py`; the step's parts in
-              bf16).
+              Step time in bf16 by CUDA events and on the host's clock, the
+              loader's wait, peak memory, launches a step, layout
+              conversions, the device's idle share and the step's parts
+              (`scripts/profile_torch_train_step.py`, which also times
+              float32).
   7. train1f  the 1-frame hard-way trainer at the recipe's width (AVENet,
               batch 20 middle frames at 224x224, 257x431 spectrograms):
               `avtubes_torch.cli.train_hardway_1frame --synthetic` at its
@@ -85,8 +85,36 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               weights at the bars of tests/test_bf16.py; eight bf16 steps
               lower the loss;
               a bf16 step's BatchNorm3d statistics against a float64 hand
-              computation with n/(n-1); step time, peak memory, launches,
-              layout conversions and idle share in both dtypes.
+              computation with n/(n-1); bf16 step time, peak memory,
+              launches, layout conversions and idle share (float32's by
+              the profile script).
+
+  9. flowcons the flow-guided consistency trainer at the recipe's width
+              (AVENet, 20 clips x 16 frames at 224x224, 257x431
+              spectrograms, the frozen FlowNetLite on the 300 frame pairs):
+              `avtubes_torch.cli.export_torch` turns phase train's
+              `hardway16_ep0` into the original's `.pth.tar`, and
+              `avtubes_torch.cli.flow --synthetic --use_pretrained
+              --pretrained_path <it> --flow_loss_weight 0.1` at its default
+              bfloat16 takes a few steps with phase flow's `flownet_ep0`
+              auto-loaded (finite losses, a positive warp term, K1 and K3's
+              forward once a step, K3's backward never, the flow net
+              bit-equal to its file after the steps, a float32 `flow_ep0`);
+              one `--no_flow` step launches no K3 and reads a warp term of
+              0.0; float32 steps with the plain K1 and the plain cost volume
+              give the same loss curve (4 clips a step, stated in the line);
+              the pretrainer runs one step on real clip pairs (an on-disk
+              dataset of 20 clips, 300 pairs); step time with the flow and
+              without, the flow net's and K3's share, peak memory.
+ 10. quant    `avtubes_torch.cli.test_quantitative --synthetic` on phase
+              train's `hardway16_ep0`, with and without `--use_activation`,
+              and with `--tag tube3d` on phase tube3d's `tube3d_ep0` (cIoU,
+              AUC and the Gaussian column in [0,1]; K1 once a batch, K2 once
+              a batch and twice with `--use_activation`), the masks, cIoU
+              and AUC recomputed (the CLI's in bf16; the same with the
+              plain K1 + K2 in float32); `cli.baseline_gaussian`;
+              `cli.visualize --overfit` and its overlays (JPEGs written);
+              `cli.export_torch` of `tube3d_ep0` read back bit-equal.
 
 Each phase's line from `serve` on carries `part_seconds` (host clock),
 and a `{"phase": "seconds"}` line gives each phase's seconds.  Then one
@@ -103,6 +131,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import threading
@@ -184,7 +213,20 @@ TUBE_STEPS = 2            # CLI steps
 TUBE_EVAL_VIDEOS = 4      # the synthetic per-frame test: 4 clips, stride 1
 TUBE_EVAL_FRAMES = 14     # frames 1 .. 14 of each 16-frame clip are scored
 TUBE_CURVE_BATCH = 4      # clips a step of the plain-vs-kernel curve (time)
-TUBE_TIMED_STEPS = {"bfloat16": 5, "float32": 1}
+TUBE_TIMED_STEPS = 5      # bf16 (float32's 1.61 s step is left to the profile script)
+
+# the flow-guided consistency trainer's recipe shapes
+FLOWCONS_BATCH = 20       # clips a step: B·(T−1) = 300 frame pairs through the frozen flow net
+FLOWCONS_STEPS = 2        # CLI steps
+FLOWCONS_WEIGHT = 0.1     # --flow_loss_weight
+FLOWCONS_CURVE_BATCH = 4  # clips a step of the plain-vs-kernel curve (time)
+FLOWCONS_TIMED_STEPS = 5
+CLIP_PAIR_VIDEOS = 20     # the pretrainer on real clip pairs: one batch of 20 clips
+
+# the evaluation CLIs
+QUANT_EVAL_BATCHES = 1    # the synthetic hard-way test set: 8 frames in one batch
+VISUALIZE_STEPS = 3       # visualize --overfit
+VISUALIZE_SAMPLES = 4     # visualize's synthetic overlays
 
 # published peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1075,8 +1117,9 @@ def shift_recovery(dev: torch.device) -> dict:
     raise AssertionError(f"shift not recovered in {SHIFT_MAX_STEPS} steps; reached {reached}")
 
 
-def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]:
-    """Returns K3's forward and backward launches on the pretrainer's steps."""
+def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> dict[str, int]:
+    """Returns K3's forward and backward launches on the pretrainer's steps;
+    leaves its `flownet_ep0` in `shared` for phase flowcons."""
     from avtubes_torch.cli import flow as flow_cli
     from avtubes_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
     from avtubes_torch.core.config import ExperimentConfig
@@ -1126,6 +1169,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict) -> dict[str, int]
         require(pred.shape == (4, IMAGE_SIZE, IMAGE_SIZE, 2), pred.shape)
         require(epe(pred.cpu().numpy(), gt) == final["epe_affine"],
                 (epe(pred.cpu().numpy(), gt), final["epe_affine"]))
+        shutil.copy(ckpt, shared)
         lap("cli_and_restore")
 
         # ---- (b) the same steps from the same init with the plain cost volume
@@ -1230,27 +1274,35 @@ def bn_hand_check(bn, step, views: int, layout: torch.memory_format) -> dict:
 
 
 def timed(step, dev: torch.device, n: int) -> dict:
-    """Step time by CUDA events and on the host's clock over the same `n`
-    steps (after a warm one), the peak memory of a step, and the profile of
-    one step more (`scripts/profile_torch_train_step.py`)."""
+    """Step time by CUDA events (each of the same `n` steps, after a warm
+    one, and their mean) and on the host's clock, the caching allocator's
+    `cudaMalloc` calls and retries in those steps (where this torch counts
+    them), the peak memory of a
+    step, and the profile of one step more
+    (`scripts/profile_torch_train_step.py`)."""
     from profile_torch_train_step import profile_train_step
 
     step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    before = torch.cuda.memory_stats(dev)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     t0 = time.monotonic()
-    start.record()
-    for _ in range(n):
+    events[0].record()
+    for i in range(n):
         step()
-    end.record()
+        events[i + 1].record()
     torch.cuda.synchronize()
     host_ms = (time.monotonic() - t0) * 1e3 / n
-    step_ms = start.elapsed_time(end) / n
+    each = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    step_ms = sum(each) / n
+    after = torch.cuda.memory_stats(dev)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     profiled = profile_train_step(step, steps=1, warm=False)
-    return {"train_step_ms": step_ms, "train_step_ms_host_clock": host_ms, "steps_timed": n,
+    return {"train_step_ms": step_ms, "train_step_ms_each": each,
+            "train_step_ms_host_clock": host_ms, "steps_timed": n,
+            **{f"{k}_in_timed_steps": after[k] - before[k]
+               for k in ("num_device_alloc", "num_alloc_retries") if k in after},
             "max_memory_allocated_gib_step": peak_gib, "profile": profiled,
             "device_idle_share_by_events": 1.0 - profiled["device_busy_ms_per_step"] / step_ms,
             "k1_share_of_step": profiled["k1_kernel_ms_per_step"] / step_ms}
@@ -1271,11 +1323,24 @@ def time_step(state, batch, cfg: SpectrogramConfig, dev: torch.device,
     return out
 
 
+def k3_counts() -> dict[str, int]:
+    return {"forward": k3.correlation_forward_cuda.launches,
+            "backward": k3.correlation_backward_cuda.launches}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count set to 0, just before a main path."""
+    k1.log_spectrogram_cuda.launches = 0
+    k2.median_mask_cuda.launches = 0
+    k3.correlation_forward_cuda.launches = 0
+    k3.correlation_backward_cuda.launches = 0
+    k3.correlation_backward_cuda.gradients = 0
+
+
 def run_cli(main, args: list[str]) -> tuple[dict, dict[str, int], float, float]:
     """A trainer's CLI as the main path: K1's and K2's counts set to 0 just
     before and read just after; (final metrics, launches, seconds, peak GiB)."""
-    k1.log_spectrogram_cuda.launches = 0
-    k2.median_mask_cuda.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     with contextlib.redirect_stdout(sys.stderr):   # keep stdout to the phase lines
@@ -1304,8 +1369,9 @@ def plain_launches_nothing(before: tuple[int, int]) -> None:
             "impl='plain' launched a kernel")
 
 
-def phase_train(dev: torch.device, report: str) -> dict[str, int]:
-    """Returns K1's and K2's launches on the trainer's CLI run."""
+def phase_train(dev: torch.device, report: str, shared: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the trainer's CLI run; leaves its
+    `hardway16_ep0` in `shared` for phases flowcons and quant."""
     from avtubes_torch.cli import export_model
     from avtubes_torch.cli import train_hardway as train_cli
     from avtubes_torch.core.config import OptimConfig
@@ -1339,6 +1405,7 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
         require(launches == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
                              "median_select": TRAIN_EVAL_BATCHES}, launches)
         ckpts = check_checkpoint(run_dir, "hardway16")
+        shutil.copy(os.path.join(run_dir, ckpts[0]), shared)
         lap("cli")
 
         # ---- (d) the checkpoint as a serving artifact (bf16, the default), validated
@@ -1392,9 +1459,9 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
         2, torch.channels_last)       # two image views: two updates a step
     lap("overfit_and_bn_by_hand")
 
-    # ---- step time at the recipe batch, memory, launches and idle share, both dtypes
-    timed = {"bfloat16": time_step(state_bf16, batches[0], cfg, dev, parts=True),
-             "float32": time_step(state, batches[0], cfg, dev, parts=False)}
+    # ---- step time at the recipe batch in bf16, memory, launches and idle share
+    # (float32's, 371-374 ms over PRs 6-8, is left to the profile script)
+    timed = {"bfloat16": time_step(state_bf16, batches[0], cfg, dev, parts=True)}
     lap("timing")
     waits = [r["loader_wait_ms"] for r in steps]
     emit("train", card=report, batch=TRAIN_BATCH, frames=TRAIN_FRAMES, views=2,
@@ -1408,8 +1475,7 @@ def phase_train(dev: torch.device, report: str) -> dict[str, int]:
          loader_wait_ms_per_step=waits,
          loader_wait_ms_after_the_first=float(np.mean(waits[1:])),
          max_memory_allocated_gib_cli=cli_peak_gib,
-         train_step_ms=timed["bfloat16"]["train_step_ms"],
-         train_step_ms_float32=timed["float32"]["train_step_ms"], by_dtype=timed,
+         train_step_ms=timed["bfloat16"]["train_step_ms"], by_dtype=timed,
          part_seconds=lap.seconds)
     return launches
 
@@ -1487,8 +1553,9 @@ def phase_train1f(dev: torch.device, report: str) -> dict[str, int]:
     return launches
 
 
-def phase_tube3d(dev: torch.device, report: str) -> dict[str, int]:
-    """Returns K1's and K2's launches on the 3D tube trainer's CLI run."""
+def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the 3D tube trainer's CLI run;
+    leaves its `tube3d_ep0` in `shared` for phase quant."""
     from avtubes_torch.cli import train_3d as cli
     from avtubes_torch.core.config import OptimConfig
     from avtubes_torch.models.fullmodel import FullModel
@@ -1516,6 +1583,7 @@ def phase_tube3d(dev: torch.device, report: str) -> dict[str, int]:
         require(launches == {"stft": TUBE_STEPS + TUBE_EVAL_VIDEOS,
                              "median_select": TUBE_EVAL_VIDEOS}, launches)
         ckpts = check_checkpoint(run_dir, "tube3d")
+        shutil.copy(os.path.join(run_dir, ckpts[0]), shared)
         images = sorted(os.listdir(os.path.join(run_dir, "images")))
         require(images == sorted(f"synthetic_0_test_frame_{f}_0.jpg"
                                  for f in range(1, TUBE_EVAL_FRAMES + 1)), images)
@@ -1586,19 +1654,12 @@ def phase_tube3d(dev: torch.device, report: str) -> dict[str, int]:
     # ---- step time at the recipe batch, memory, launches, conversions, idle share
     del state, bf16
     torch.cuda.empty_cache()
-    by_dtype = {"bfloat16": timed(step_bf16, dev, TUBE_TIMED_STEPS["bfloat16"])}
+    by_dtype = {"bfloat16": timed(step_bf16, dev, TUBE_TIMED_STEPS)}
     by_dtype["bfloat16"]["step_parts_ms"] = tube3d_step_parts_ms(state_bf16, clips, waves,
                                                                  draws.flip1, cfg)
     lap("timing_bfloat16")
     del state_bf16
     torch.cuda.empty_cache()
-    _, state32 = curve("kernel", [], "float32")
-    by_dtype["float32"] = timed(
-        lambda: train3d_fused_step(state32, clips, waves, draws.flip1, cfg), dev,
-        TUBE_TIMED_STEPS["float32"])
-    del state32
-    torch.cuda.empty_cache()
-    lap("timing_float32")
     emit("tube3d", card=report, batch=TUBE_BATCH, frames=TUBE_FRAMES, views=1,
          image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
          cli_steps=TUBE_STEPS, cli_eval_videos=TUBE_EVAL_VIDEOS,
@@ -1609,10 +1670,350 @@ def phase_tube3d(dev: torch.device, report: str) -> dict[str, int]:
          perframe_mask_flips_vs_plain=flips, bf16_vs_fp32=bars, overfit_dtype="bfloat16",
          overfit_lr=OVERFIT_LR, overfit_losses=overfit,
          bn3d_running_stats_vs_hand_max_rel_err=bn_err,
-         train_step_ms=by_dtype["bfloat16"]["train_step_ms"],
-         train_step_ms_float32=by_dtype["float32"]["train_step_ms"], by_dtype=by_dtype,
+         train_step_ms=by_dtype["bfloat16"]["train_step_ms"], by_dtype=by_dtype,
          part_seconds=lap.seconds)
     return launches
+
+
+def flow_records(run_dir: str) -> list[dict]:
+    """The consistency trainer's logged steps, in order."""
+    with open(os.path.join(run_dir, "flow.metrics.jsonl")) as fh:
+        return [r for r in map(json.loads, fh) if "loss" in r]
+
+
+def clip_pair_pretrain(root: str) -> dict:
+    """The pretrainer on real clip pairs, one step through its CLI: an
+    on-disk dataset of CLIP_PAIR_VIDEOS clips of 16 JPEG frames (one batch,
+    B·(T−1) = 300 pairs at 224x224), K3 forward and backward at batch 300."""
+    from avtubes_torch.cli import flow as flow_cli
+    from avtubes_torch.data.synthetic import write_synthetic_dataset
+
+    data = os.path.join(root, "clips")
+    t0 = time.monotonic()
+    write_synthetic_dataset(data, n_videos=CLIP_PAIR_VIDEOS, frames=TRAIN_FRAMES, seconds=10)
+    write_s = time.monotonic() - t0
+    zero_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        final = flow_cli.main(["--train_flow", "--data_path", data, "--metadata_dir",
+                               os.path.join(data, "metadata"), "--batch_size",
+                               str(CLIP_PAIR_VIDEOS), "--frame_density", str(TRAIN_FRAMES),
+                               "--image_size", str(IMAGE_SIZE),
+                               "--epochs", "1", "--steps", "1", "--summaries_dir",
+                               os.path.join(root, "clip_pairs")])
+    launches = k3_counts()
+    require(set(final) == {"loss", "photometric", "smoothness"}
+            and all(np.isfinite(v) for v in final.values()), final)
+    # one step: its forward, and one backward launch for both gradients (no probe)
+    require(launches == {"forward": 1, "backward": 1}, launches)
+    return {"pairs": CLIP_PAIR_VIDEOS * (TRAIN_FRAMES - 1), "final": final,
+            "launches": launches, "dataset_write_s": round(write_s, 2),
+            "cli_seconds_host_clock": round(time.monotonic() - t0 - write_s, 2)}
+
+
+def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
+                   shared: str) -> dict[str, dict[str, int]]:
+    """Returns K1's and K3's launches on the consistency trainer's CLI run
+    and on the pretrainer's run on real clip pairs."""
+    from avtubes_torch.cli import export_torch
+    from avtubes_torch.cli import flow as flow_cli
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.flownet import FlowNetLite
+    from avtubes_torch.train import flow as flow_train
+    from avtubes_torch.train.state import create_train_state
+    from profile_torch_train_step import flowcons_step_parts_ms, recipe_batch
+
+    cfg = SpectrogramConfig()
+    torch.cuda.empty_cache()
+    lap = Laps()
+    # ---- (a) phase train's checkpoint as the original's envelope
+    ref = os.path.join(shared, "hardway16.pth.tar")
+    with contextlib.redirect_stdout(sys.stderr):
+        export_torch.main(["--summaries_dir", shared, "--out", ref])
+    flownet_saved = torch.load(os.path.join(shared, "flownet_ep0"), map_location="cpu",
+                               weights_only=True)["params"]
+    lap("export_torch")
+
+    # ---- (b) the main path: the CLI at the recipe, bf16, the flow net auto-loaded
+    nets = []
+    load_flow_net = flow_train.load_flow_net
+
+    def keep(*args, **kwargs):
+        nets.append(load_flow_net(*args, **kwargs))
+        return nets[-1]
+
+    args = ["--synthetic", "--batch_size", str(FLOWCONS_BATCH), "--frame_density",
+            str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE), "--epochs", "1",
+            "--seed", str(SEED), "--use_pretrained", "--pretrained_path", ref]
+    flow_train.load_flow_net = keep
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):
+            final = flow_cli.main([*args, "--steps", str(FLOWCONS_STEPS), "--summaries_dir",
+                                   shared, "--flow_loss_weight", str(FLOWCONS_WEIGHT)])
+        cli_s = time.monotonic() - t0
+        launches = {"stft": k1.log_spectrogram_cuda.launches,
+                    "median_select": k2.median_mask_cuda.launches, **k3_counts()}
+        cli_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        flow_train.load_flow_net = load_flow_net
+    steps = flow_records(shared)
+    require(len(steps) == FLOWCONS_STEPS, steps)
+    require(all(np.isfinite([r[k] for k in ("loss", "hardway_loss", "warp_consistency")]).all()
+                and r["warp_consistency"] > 0 for r in steps), steps)
+    # K1 and K3's forward once a step; the flow net is frozen: no backward
+    require(launches == {"stft": FLOWCONS_STEPS, "median_select": 0,
+                         "forward": FLOWCONS_STEPS, "backward": 0}, launches)
+    require(len(nets) == 1 and all(torch.equal(v.cpu(), flownet_saved[k])
+                                   for k, v in nets[0].state_dict().items()),
+            "the flow net is not phase flow's flownet_ep0, or it moved")
+    require(not any(p.requires_grad for p in nets[0].parameters()), "the flow net is trainable")
+    ckpts = check_checkpoint(shared, "flow")
+    lap("cli")
+
+    # ---- (c) one step without the flow: no K3, a warp term of 0.0
+    zero_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        no_flow = flow_cli.main([*args, "--steps", "1", "--summaries_dir",
+                                 os.path.join(shared, "no_flow"), "--no_flow"])
+    require(no_flow["warp_consistency"] == 0.0 and np.isfinite(no_flow["loss"]), no_flow)
+    require((k1.log_spectrogram_cuda.launches, *k3_counts().values()) == (1, 0, 0),
+            (k1.log_spectrogram_cuda.launches, k3_counts()))
+    lap("no_flow")
+
+    # ---- (d) float32 steps with the plain K1 and the plain cost volume
+    small = [recipe_batch(dev, FLOWCONS_CURVE_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg,
+                          seed=SEED + i) for i in range(CURVE_STEPS)]
+
+    def frozen_net(impl: str) -> FlowNetLite:
+        net = FlowNetLite(impl=impl)
+        net.load_state_dict(flownet_saved)
+        return net.to(dev).eval().requires_grad_(False)
+
+    def curve(impl: str, data, dtype: str = "float32"):
+        model = AVENet(generator=torch.Generator().manual_seed(SEED), compute_dtype=dtype)
+        state = create_train_state(model.to(dev), OptimConfig())
+        net = frozen_net(impl)
+        return [{k: float(v) for k, v in flow_train.flow_fused_train_step(
+                    state, net, c, w, d.flip1, cfg, FLOWCONS_WEIGHT, impl=impl).items()}
+                for c, w, d in data], state, net
+
+    kernel_curve, _, _ = curve("kernel", small)
+    before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches,
+                    k3.correlation_forward_cuda.launches)
+    plain_curve, _, _ = curve("plain", small)
+    require((k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches,
+             k3.correlation_forward_cuda.launches) == before_plain,
+            "impl='plain' launched a kernel")
+    rel = max(abs(a[k] - b[k]) / abs(b["loss"]) for a, b in zip(kernel_curve, plain_curve)
+              for k in a)
+    require(rel <= TRAIN_LOSS_RTOL, (kernel_curve, plain_curve))
+    lap("curve_vs_plain")
+
+    # ---- (e) the pretrainer on real clip pairs
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_pairs = clip_pair_pretrain(tmp)
+    lap("pretrain_on_clip_pairs")
+
+    # ---- step time at the recipe batch, with the flow and without; shares, memory
+    del small
+    torch.cuda.empty_cache()
+    clips, waves, draws = recipe_batch(dev, FLOWCONS_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg,
+                                       seed=SEED)
+    _, state, net = curve("kernel", [], "bfloat16")
+    by_flow = {}
+    for name, weight, on in (("flow", FLOWCONS_WEIGHT, True), ("no_flow", 0.0, False)):
+        by_flow[name] = timed(lambda weight=weight, on=on: flow_train.flow_fused_train_step(
+            state, net, clips, waves, draws.flip1, cfg, weight, compute_flow=on), dev,
+            FLOWCONS_TIMED_STEPS)
+    by_flow["flow"]["step_parts_ms"] = flowcons_step_parts_ms(
+        state, net, clips, waves, draws.flip1, cfg, FLOWCONS_WEIGHT)
+    step_ms = by_flow["flow"]["train_step_ms"]
+    flow_net_ms = by_flow["flow"]["step_parts_ms"]["frozen_flow_net_K3"]
+    k3_ms = by_flow["flow"]["profile"]["k3_forward_kernel_ms_per_step"]
+    require(by_flow["flow"]["profile"]["k3_forward_launches_per_step"] == 1
+            and by_flow["flow"]["profile"]["k3_backward_kernel_ms_per_step"] == 0.0,
+            by_flow["flow"]["profile"])
+    del state, net
+    torch.cuda.empty_cache()
+    lap("timing")
+    emit("flowcons", card=report, batch=FLOWCONS_BATCH, frames=TRAIN_FRAMES, views=1,
+         frame_pairs=FLOWCONS_BATCH * (TRAIN_FRAMES - 1), image_size=IMAGE_SIZE,
+         spectrogram=list(cfg.shape), cli_dtype="bfloat16", flow_loss_weight=FLOWCONS_WEIGHT,
+         cli_steps=FLOWCONS_STEPS, cli_seconds_host_clock=round(cli_s, 2), launches=launches,
+         steps=steps, final=final, checkpoints=ckpts, no_flow_final=no_flow,
+         max_memory_allocated_gib_cli=cli_peak_gib, curve_dtype="float32",
+         curve_batch=FLOWCONS_CURVE_BATCH, curve_kernel=kernel_curve, curve_plain=plain_curve,
+         curve_max_rel_diff_vs_plain=rel, pretrain_on_clip_pairs=clip_pairs,
+         train_step_ms=step_ms, train_step_ms_no_flow=by_flow["no_flow"]["train_step_ms"],
+         flow_net_share_of_step=flow_net_ms / step_ms, k3_forward_share_of_step=k3_ms / step_ms,
+         k3_forward_kernel_ms_batch300=k3_times["kernel_ms_batch300"], by_flow=by_flow,
+         part_seconds=lap.seconds)
+    return {"flow_consistency": {"stft": launches["stft"], "correlation": launches["forward"],
+                                 "correlation_backward": launches["backward"]},
+            "flow_pretrain_clips": {"correlation": clip_pairs["launches"]["forward"],
+                                    "correlation_backward": clip_pairs["launches"]["backward"]}}
+
+
+def synthetic_test_frames(n: int = 8):
+    """The CLIs' synthetic hard-way test set: (ids, frames, waveforms) on the host."""
+    from avtubes_torch.core.config import ExperimentConfig
+    from avtubes_torch.data.pipeline import SyntheticSource
+
+    src = SyntheticSource(ExperimentConfig.from_args(["--synthetic"]).data, n=n, clip=False,
+                          seed=1)
+    samples = [src.load(i) for i in range(n)]
+    return ([s["id"] for s in samples], np.stack([s["frame"] for s in samples]),
+            np.stack([s["waveform"] for s in samples]))
+
+
+def eval_maps(model, frames: torch.Tensor, waves: torch.Tensor, cfg: SpectrogramConfig,
+              impl: str) -> list[torch.Tensor]:
+    """What test_quantitative binarizes, before K2, with K1's `impl`: AVENet's
+    heatmap and its layer4 channel-mean activation map, or FullModel's
+    heatmap of each frame as a clip of one frame."""
+    from avtubes_torch.cli.test_quantitative import heatmap_and_activation_maps
+    from avtubes_torch.train.steps import eval_mode
+
+    if isinstance(model, AVENet):
+        return list(heatmap_and_activation_maps(model, frames, waves, cfg, impl))
+    with eval_mode(model):
+        spec = log_spectrogram(waves, cfg, impl=impl)[..., None]
+        return [model.forward_shared_audio(spec, normalize_imagenet(frames)[:, None]).heatmap]
+
+
+def phase_quant(dev: torch.device, report: str, shared: str) -> dict[str, dict[str, int]]:
+    """Returns K1's and K2's launches on the evaluation CLIs' runs."""
+    from avtubes_torch.cli import baseline_gaussian, export_torch, test_quantitative, visualize
+    from avtubes_torch.core.checkpoint import restore_checkpoint
+    from avtubes_torch.core.config import ExperimentConfig, OptimConfig
+    from avtubes_torch.core.reference_checkpoint import load_fullmodel_reference_checkpoint
+    from avtubes_torch.evaluation.metrics import auc_from_ciou, ciou_single
+    from avtubes_torch.train import hardway, train3d
+    from avtubes_torch.train.state import create_train_state
+
+    cfg = SpectrogramConfig()
+    lap = Laps()
+
+    def counts() -> dict[str, int]:
+        return {"stft": k1.log_spectrogram_cuda.launches,
+                "median_select": k2.median_mask_cuda.launches}
+
+    # ---- (a) the main path: cIoU / AUC of the trainers' checkpoints
+    quant, by_run = {}, {}
+    for name, extra, k2_a_batch in (("hardway16", [], 1),
+                                    ("hardway16_use_activation", ["--use_activation"], 2),
+                                    ("tube3d", ["--tag", "tube3d"], 1)):
+        zero_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            quant[name] = test_quantitative.main(["--synthetic", "--summaries_dir", shared,
+                                                  *extra])
+        by_run[name] = counts()
+        require(quant[name]["hardway_n"] == 8 and all(
+            0.0 <= quant[name][k] <= 1.0 for k in ("hardway_ciou", "hardway_auc",
+                                                    "gaussian_ciou", "gaussian_auc")),
+            quant[name])
+        require(by_run[name] == {"stft": QUANT_EVAL_BATCHES,
+                                 "median_select": k2_a_batch * QUANT_EVAL_BATCHES},
+                (name, by_run[name]))
+    launches = {k: sum(r[k] for r in by_run.values()) for k in ("stft", "median_select")}
+    lap("test_quantitative")
+
+    # ---- (b) the masks and cIoU with the plain K1 + K2, on the restored weights.
+    # In bf16, the CLIs' dtype, a 5e-7 change of the spectrogram moves bf16
+    # roundings through the towers, so K1 is held where the trainers hold it,
+    # in float32; K2 is held in bf16 on the same heatmaps, where it is exact.
+    ids, frames, waves = synthetic_test_frames()
+    frames, waves = torch.from_numpy(frames).to(dev), torch.from_numpy(waves).to(dev)
+    gt = hardway._synthetic_gt_lookup()(None)
+    vs_plain = {}
+    for name, build, runs in (("hardway16", hardway.build_model,
+                               {"hardway16": 0, "hardway16_use_activation": None}),
+                              ("tube3d", train3d.build_model, {"tube3d": 0})):
+        out = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg_d = ExperimentConfig.from_args(["--synthetic", "--compute_dtype", dtype])
+            state = create_train_state(build(cfg_d).to(dev), OptimConfig())
+            restore_checkpoint(os.path.join(shared, f"{name}_ep0"), state)
+            maps = {}
+            for impl in ("kernel",) if dtype == "bfloat16" else ("kernel", "plain"):
+                before = counts()
+                maps[impl] = eval_maps(state.model, frames, waves, cfg, impl)
+                require(counts()["stft"] == before["stft"] + (impl == "kernel"),
+                        "impl='plain' launched a kernel")
+            before = counts()
+            masks = {(k1_impl, k2_impl): [heatmap_to_mask_batch(m, impl=k2_impl).cpu().numpy()
+                                          for m in maps[k1_impl]]
+                     for k1_impl in maps for k2_impl in ("plain", "kernel")}
+            require(counts()["median_select"] == before["median_select"] + len(maps["kernel"]) * (
+                1 if dtype == "bfloat16" else 2), "impl='plain' launched a kernel")
+            # each run's cIoU@0.5 and AUC from each impl's masks: in bf16 the
+            # CLI's, in float32 the same for the kernels and the plain versions.
+            # The synthetic set's cIoU@0.5 reads 0.0 for these weights, so the
+            # AUC (which reads every sample's cIoU) is what can fail here.
+            scores = {}
+            for key, per_map in masks.items():
+                for run, which in runs.items():
+                    cious = np.asarray([max(ciou_single(m[i], gt, 0.5) for m in (
+                        per_map if which is None else per_map[:1])) for i in range(len(ids))])
+                    scores[(*key, run)] = (float(np.mean(cious >= 0.5)), auc_from_ciou(cious))
+            want = ({run: (quant[run]["hardway_ciou"], quant[run]["hardway_auc"])
+                     for run in runs} if dtype == "bfloat16"
+                    else {run: scores["kernel", "kernel", run] for run in runs})
+            require(all(scores[(*key, run)] == want[run] for key in masks for run in runs),
+                    (name, dtype, scores, want))
+            out[f"{dtype}_hardway_ciou_auc"] = want
+            if dtype == "bfloat16":
+                require(all(np.array_equal(a, b) for a, b in zip(
+                    masks["kernel", "kernel"], masks["kernel", "plain"])),
+                    f"{name}: K2 differs from its plain version in bf16")
+                out["bf16_k2_bit_equal"] = True
+            else:
+                flips = [int(np.abs(a - b).sum(axis=(1, 2)).max()) for a, b in zip(
+                    masks["kernel", "kernel"], masks["plain", "plain"])]
+                require(max(flips) <= MASK_FLIPS, f"{name}: kernels vs plain, {flips} flips")
+                out["float32_max_flips_per_map"] = flips
+            del state
+        vs_plain[name] = out
+    lap("vs_plain")
+
+    # ---- (c) the Gaussian sweep, the overlays, the 3D export read back
+    with contextlib.redirect_stdout(sys.stderr):
+        best = baseline_gaussian.main(["--synthetic"])
+    require(0.0 <= best[0] <= 1.0 and best[2] >= 1, best)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        overfit = visualize.main(["--synthetic", "--overfit", "--steps", str(VISUALIZE_STEPS)])
+        overlays = visualize.main(["--synthetic", "--summaries_dir", shared, "--out_dir",
+                                   os.path.join(tmp, "overlays")])
+        images = sorted(os.path.basename(p) for p in overlays)
+        require(all(os.path.getsize(p) > 0 for p in overlays), "an empty overlay")
+    visualize_launches = counts()
+    require(np.isfinite(overfit).all() and len(overfit) == VISUALIZE_STEPS, overfit)
+    require(images == [f"synthetic_{i}.jpg" for i in range(VISUALIZE_SAMPLES)], images)
+    # overfit: K1 once, K2 a step; overlays: K1 and K2 a sample
+    require(visualize_launches == {"stft": 1 + VISUALIZE_SAMPLES,
+                                   "median_select": VISUALIZE_STEPS + VISUALIZE_SAMPLES},
+            visualize_launches)
+    lap("gaussian_and_visualize")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tube3d.pth.tar")
+        with contextlib.redirect_stdout(sys.stderr):
+            export_torch.main(["--summaries_dir", shared, "--tag", "tube3d", "--out", out])
+        saved = torch.load(os.path.join(shared, "tube3d_ep0"), map_location="cpu",
+                           weights_only=True)["params"]
+        back = train3d.build_model(ExperimentConfig.from_args(["--synthetic"]))
+        require(load_fullmodel_reference_checkpoint(out, back) == ("vidnet", "audnet"), out)
+        require(all(torch.equal(v, saved[k]) for k, v in back.state_dict().items()
+                    if not k.endswith("num_batches_tracked")), "tube3d export differs")
+    lap("export_tube3d")
+    emit("quant", card=report, image_size=IMAGE_SIZE, spectrogram=list(cfg.shape),
+         cli_dtype="bfloat16", test_quantitative=quant, launches_by_run=by_run,
+         masks_vs_plain=vs_plain, gaussian_best=list(best), visualize_overfit_losses=overfit,
+         visualize_images=images, visualize_launches=visualize_launches,
+         part_seconds=lap.seconds)
+    return {"test_quantitative": launches, "visualize": visualize_launches}
 
 
 def main() -> int:
@@ -1626,24 +2027,48 @@ def main() -> int:
     lap("kernels")
     served = phase_serve(dev, report)
     lap("serve")
-    flow_launches = phase_flow(dev, report, results["correlation"])
-    lap("flow")
-    train_launches = phase_train(dev, report)
-    lap("train")
-    train1f_launches = phase_train1f(dev, report)
-    lap("train1f")
-    tube3d_launches = phase_tube3d(dev, report)
-    lap("tube3d")
+    # the trainers' checkpoints that the later phases read
+    with tempfile.TemporaryDirectory() as shared:
+        flow_launches = phase_flow(dev, report, results["correlation"], shared)
+        lap("flow")
+        train_launches = phase_train(dev, report, shared)
+        lap("train")
+        flowcons = phase_flowcons(dev, report, results["correlation"], shared)
+        lap("flowcons")
+        train1f_launches = phase_train1f(dev, report)
+        lap("train1f")
+        tube3d_launches = phase_tube3d(dev, report, shared)
+        lap("tube3d")
+        evaluation = phase_quant(dev, report, shared)
+        lap("quant")
     emit("seconds", by_phase=lap.seconds)
     sys.stderr.write(f"chip_smoke: seconds by phase {lap.seconds}\n")
     # each path's count, taken with the counts set to 0 just before it
-    by_path = {key: {"serve_bf16": served["bfloat16"][key],
-                     "serve_fp32": served["float32"][key], "train": train_launches[key],
-                     "train_1frame": train1f_launches[key],
-                     "train_3d": tube3d_launches[key]}
-               for key in ("stft", "median_select")}
-    by_path["correlation"] = {"flow": flow_launches["forward"]}
-    results["correlation"]["backward_launches"] = flow_launches["backward"]
+    by_path = {"stft": {"serve_bf16": served["bfloat16"]["stft"],
+                        "serve_fp32": served["float32"]["stft"], "train": train_launches["stft"],
+                        "flow_consistency": flowcons["flow_consistency"]["stft"],
+                        "train_1frame": train1f_launches["stft"],
+                        "train_3d": tube3d_launches["stft"],
+                        "test_quantitative": evaluation["test_quantitative"]["stft"],
+                        "visualize": evaluation["visualize"]["stft"]},
+               "median_select": {
+                   "serve_bf16": served["bfloat16"]["median_select"],
+                   "serve_fp32": served["float32"]["median_select"],
+                   "train": train_launches["median_select"],
+                   "train_1frame": train1f_launches["median_select"],
+                   "train_3d": tube3d_launches["median_select"],
+                   "test_quantitative": evaluation["test_quantitative"]["median_select"],
+                   "visualize": evaluation["visualize"]["median_select"]},
+               "correlation": {
+                   "flow": flow_launches["forward"],
+                   "flow_pretrain_clips": flowcons["flow_pretrain_clips"]["correlation"],
+                   "flow_consistency": flowcons["flow_consistency"]["correlation"]}}
+    # the backward kernel runs on the pretrainer's paths alone: the
+    # consistency trainer's flow net is frozen
+    results["correlation"]["backward_launches"] = (
+        flow_launches["backward"] + flowcons["flow_pretrain_clips"]["correlation_backward"])
+    results["correlation"]["backward_launches_flow_consistency"] = (
+        flowcons["flow_consistency"]["correlation_backward"])
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "kernel_ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "algorithm_bound_ms", "algorithm", "library_ms", "library_call",
@@ -1655,7 +2080,7 @@ def main() -> int:
         # a library call's time on the device alone, where there is a call;
         # the variants' times and K3's backward kernel under names of their own
         extra = [k for k in res if k not in keys and k.startswith(
-            ("backward_", "kernel_ms_", "ms_", "library_kernel"))]
+            ("backward_", "kernel_ms_", "ms_", "bound_ms_", "library_kernel"))]
         kernels.append({k: res[k] for k in (*keys, *extra)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(report, flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one training step of the PyTorch/CUDA port spends the card's time.
 
-    python3 scripts/profile_torch_train_step.py [--model hardway|tube3d]
+    python3 scripts/profile_torch_train_step.py [--model hardway|tube3d|flowcons]
                                                 [--batch 20] [--frames 16]
                                                 [--image_size 224] [--steps 2]
                                                 [--compute_dtype bfloat16]
@@ -12,13 +12,17 @@ Makes one synthetic recipe batch on the card (uint8 clips of `--frames`
 frames, int16 waveforms of 10 s at 22.05 kHz), its random draws and a
 seeded train state (`avtubes_torch`, backbones in `--compute_dtype`, TF32
 off) of the model's trainer: `hardway`, the flagship 16-frame two-view
-step of AVENet (`hardway_fused_train_step`), or `tube3d`, the 3D tube step
-of FullModel (`train3d_fused_step`, view 1 only).  It runs `--steps` steps
+step of AVENet (`hardway_fused_train_step`), `tube3d`, the 3D tube step
+of FullModel (`train3d_fused_step`, view 1 only), or `flowcons`, the
+flow-guided consistency step of AVENet (`train/flow.py::
+flow_fused_train_step`, view 1 only, a frozen seeded FlowNetLite in float32
+on the B·(T−1) frame pairs, `--flow_loss_weight` 0.1 by default;
+`--no_flow` drops the flow net).  It runs `--steps` steps
 under `torch.profiler` (CPU + CUDA activities) and prints one JSON line:
 wall time per step on the host's clock, the device's busy time per step
 (sum of kernel and memcpy device time), the idle share that follows from
 the two, device launches per step, the device time of the hand-written K1
-kernel, of cuDNN's layout conversions (NCHW<->NHWC, and their 3-D kinds)
+kernel and of K3's forward and backward kernels, of cuDNN's layout conversions (NCHW<->NHWC, and their 3-D kinds)
 and of BatchNorm's kernels, the fifteen most expensive kernels, CUDA-event
 times of the step's parts (spectrogram, augmentation, forward + loss,
 backward, optimizer) and the peak device memory of a step.  `--layout
@@ -133,6 +137,9 @@ def profile_train_step(step, steps: int = 2, out: str | None = None,
         "device_launches_per_step": sum(r[2] for r in rows),
         "k1_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "log_spectrogram" in k),
         "k1_launches_per_step": sum(c for k, _, c in rows if "log_spectrogram" in k),
+        "k3_forward_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "corr_fwd" in k),
+        "k3_forward_launches_per_step": sum(c for k, _, c in rows if "corr_fwd" in k),
+        "k3_backward_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "corr_bwd" in k),
         "layout_conversions_per_step": sum(
             c for k, _, c in rows if any(n in k for n in LAYOUT_CONVERSIONS)),
         "layout_conversions_ms_per_step": sum(
@@ -188,6 +195,35 @@ def tube3d_step_parts_ms(state, clips, waves, flip1, spec_cfg: SpectrogramConfig
     return _backward_and_adam(state, forward_loss, parts)
 
 
+def flowcons_step_parts_ms(state, flow_net, clips, waves, flip1, spec_cfg: SpectrogramConfig,
+                           flow_loss_weight: float = 0.1, compute_flow: bool = True) -> dict:
+    """CUDA-event times of the consistency step's parts, each alone."""
+    from avtubes_torch.train.flow import frame_pair_flow, warp_consistency
+
+    model = state.model
+    b, t = clips.shape[:2]
+    with torch.no_grad():
+        spec = log_spectrogram(waves, spec_cfg)[..., None]
+        video = augment_view1(clips, flip1)
+        flow = frame_pair_flow(flow_net, video) if compute_flow else None
+    parts = {"log_spectrogram_K1": cuda_ms(lambda: log_spectrogram(waves, spec_cfg)),
+             "augment_view1": cuda_ms(lambda: augment_view1(clips, flip1))}
+    if compute_flow:
+        parts["frozen_flow_net_K3"] = cuda_ms(lambda: frame_pair_flow(flow_net, video))
+
+    def forward_loss():
+        out = model.forward_shared_audio(_fold_time(video), spec)
+        loss = hardway_loss(out.logits)
+        if compute_flow:
+            pos = out.pos.reshape(b, t, *out.pos.shape[1:])
+            loss = loss + flow_loss_weight * warp_consistency(pos, flow, video.shape[2])
+        return loss
+
+    model.train()
+    parts["forward_and_loss"] = cuda_ms(forward_loss)
+    return _backward_and_adam(state, forward_loss, parts)
+
+
 def _backward_and_adam(state, forward_loss, parts: dict) -> dict:
     """`parts` with the times of forward + loss + backward and of the Adam
     update."""
@@ -203,7 +239,9 @@ def _backward_and_adam(state, forward_loss, parts: dict) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model", default="hardway", choices=("hardway", "tube3d"))
+    p.add_argument("--model", default="hardway", choices=("hardway", "tube3d", "flowcons"))
+    p.add_argument("--flow_loss_weight", type=float, default=0.1)
+    p.add_argument("--no_flow", action="store_true")
     p.add_argument("--batch", type=int, default=20)
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--image_size", type=int, default=224)
@@ -217,7 +255,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")                       # the card, or an error
     spec_cfg = SpectrogramConfig()
-    net = AVENet if a.model == "hardway" else FullModel
+    net = FullModel if a.model == "tube3d" else AVENet
     model = net(generator=torch.Generator().manual_seed(0), compute_dtype=a.compute_dtype)
     if a.layout == "contiguous":
         for backbone in model.children():
@@ -233,16 +271,33 @@ def main(argv=None) -> int:
 
         def parts():
             return step_parts_ms(state, clips, waves, draws, spec_cfg, a.image_size)
-    else:
+    elif a.model == "tube3d":
         def step():
             return train3d_fused_step(state, clips, waves, draws.flip1, spec_cfg)
 
         def parts():
             return tube3d_step_parts_ms(state, clips, waves, draws.flip1, spec_cfg)
+    else:
+        from avtubes_torch.models.flownet import FlowNetLite
+        from avtubes_torch.train.flow import flow_fused_train_step
+
+        flow_net = FlowNetLite(generator=torch.Generator().manual_seed(7)).to(dev)
+        flow_net.eval().requires_grad_(False)
+        weight, compute_flow = (0.0, False) if a.no_flow else (a.flow_loss_weight, True)
+
+        def step():
+            return flow_fused_train_step(state, flow_net, clips, waves, draws.flip1, spec_cfg,
+                                         weight, compute_flow=compute_flow)
+
+        def parts():
+            return flowcons_step_parts_ms(state, flow_net, clips, waves, draws.flip1, spec_cfg,
+                                          weight, compute_flow)
     torch.cuda.reset_peak_memory_stats(dev)
     report = profile_train_step(step, a.steps, a.out)
     report["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     report["cuda_event_ms"] = parts()
+    if a.model == "flowcons":
+        report["flow"] = "off" if a.no_flow else f"weight {a.flow_loss_weight}"
     print(json.dumps({"card": device_report(), "model": a.model, "batch": a.batch,
                       "frames": a.frames, "image_size": a.image_size,
                       "compute_dtype": a.compute_dtype, "layout": a.layout, **report}))

@@ -258,15 +258,36 @@ def test_restore_is_strict_about_names(tmp_path):
         restore_checkpoint(path, state)
 
 
-def test_what_is_not_ported_raises(tmp_path):
-    cfg = _cfg(tmp_path)
-    real = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, synthetic=False))
-    with pytest.raises(NotImplementedError, match="data pipeline"):
-        tfp.run_pretrain(real, steps_cap=1)
-    with pytest.raises(SystemExit, match="not ported"):
-        flow_cli.main(["--synthetic", "--device", "cpu", "--flow_loss_weight", "0.1"])
-    with pytest.raises(SystemExit, match="not ported"):
-        flow_cli.main(["--synthetic", "--device", "cpu", "--no_flow"])
+def test_what_is_not_ported_raises(tmp_path, capsys):
+    """What this test once held to raise is ported now, and runs on the CPU:
+    the pretrainer on real clip pairs (`_clip_pair_batches`, over the
+    on-disk synthetic dataset) and the flow-consistency trainer through the
+    CLI with `--flow_loss_weight` and with `--no_flow`."""
+    from avtubes_torch.data.synthetic import write_synthetic_dataset
+
+    data = tmp_path / "data"
+    write_synthetic_dataset(data, n_videos=2, frames=3, samplerate=8000, seconds=1,
+                            image_hw=(40, 40))
+    real = ExperimentConfig.from_args(
+        ["--data_path", str(data), "--metadata_dir", str(data / "metadata"), "--image_size",
+         "32", "--frame_density", "3", "--batch_size", "2", "--samplerate", "8000",
+         "--audio_seconds", "1", "--epochs", "1", "--device", "cpu", "--n_threads", "2",
+         "--summaries_dir", str(tmp_path / "pretrain")])
+    metrics = tfp.run_pretrain(real, steps_cap=1)
+    assert np.isfinite(metrics["loss"]) and (tmp_path / "pretrain" / "flownet_ep0").is_file()
+    consistency = ["--synthetic", "--device", "cpu", "--image_size", "32", "--frame_density",
+                   "2", "--batch_size", "2", "--samplerate", "8000", "--audio_seconds", "1",
+                   "--compute_dtype", "float32", "--epochs", "1", "--steps", "1",
+                   "--n_threads", "2"]
+    final = flow_cli.main([*consistency, "--summaries_dir", str(tmp_path / "on"),
+                           "--flow_loss_weight", "0.1"])
+    assert np.isfinite(final["loss"]) and final["warp_consistency"] > 0
+    final = flow_cli.main([*consistency, "--summaries_dir", str(tmp_path / "off"), "--no_flow"])
+    assert final["warp_consistency"] == 0.0
+    assert capsys.readouterr().out.count("final:") == 2
+    for run in ("on", "off"):
+        assert (tmp_path / run / "flow_ep0").is_file()
+        (tmp_path / run / "flow_ep0").unlink()
 
 
 def test_cli_train_flow_on_the_cpu(tmp_path, capsys):

@@ -1,6 +1,7 @@
 """What the port may import, and what it does where there is no card."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -29,7 +30,9 @@ def test_expected_modules_exist():
                  "evaluation.gt", "data.index", "data.pipeline", "data.synthetic",
                  "core.reference_checkpoint", "cli.train_hardway", "cli.export_model",
                  "utils.visual", "models.resnet3d", "models.fullmodel", "train.train3d",
-                 "train.hardway_1frame", "cli.train_3d", "cli.train_hardway_1frame"):
+                 "train.hardway_1frame", "cli.train_3d", "cli.train_hardway_1frame",
+                 "utils.misc", "utils.flow_io", "cli.baseline_gaussian",
+                 "cli.test_quantitative", "cli.export_torch", "cli.visualize", "train.flow"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -200,7 +203,7 @@ def test_default_device_raises_without_a_card(tmp_path):
     assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
 
 
-@pytest.mark.parametrize("cli", ["train_3d", "train_hardway_1frame"])
+@pytest.mark.parametrize("cli", ["train_3d", "train_hardway_1frame", "flow"])
 def test_the_new_trainers_default_to_the_card(tmp_path, cli):
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a CUDA card")
@@ -211,6 +214,26 @@ def test_the_new_trainers_default_to_the_card(tmp_path, cli):
         cwd=ROOT, text=True, capture_output=True, timeout=300)
     assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
     assert "final:" not in out.stdout and not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("cli,args", [
+    ("test_quantitative", ["--synthetic"]),
+    ("test_quantitative", ["--synthetic", "--tag", "tube3d"]),
+    ("export_torch", ["--out", "m.pth.tar"]),
+    ("visualize", ["--synthetic", "--overfit", "--steps", "1"]),
+    ("visualize", ["--synthetic", "--out_dir", "overlays"])])
+def test_the_evaluation_clis_default_to_the_card(tmp_path, cli, args):
+    """`baseline_gaussian` is host work and takes no device; the others
+    raise without a card before they read or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", f"avtubes_torch.cli.{cli}", *args, "--image_size", "32",
+         "--samplerate", "8000", "--audio_seconds", "1", "--summaries_dir", str(tmp_path)],
+        cwd=tmp_path, text=True, capture_output=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert not list(tmp_path.iterdir()) and "Hardway Test" not in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

@@ -61,6 +61,40 @@ def jax_fullmodel_state(seed: int = 0, optim=None, dtype=jnp.float32):
     return perturbed(state, seed)
 
 
+def jax_avenet_state(seed: int = 0, tx=None):
+    """A JAX AVENet train state at the tiny geometry whose weights are made
+    with numpy from `seed` as `jax_fullmodel_state`'s are (nothing is
+    compiled, where `jax_state` compiles the init); `tx` (default: the
+    recipe's optimizer) is its optimizer."""
+    from avtubes.train.state import AVTrainState, make_optimizer
+
+    jcfg, _ = spec_cfgs()
+    cfg = ExperimentConfig()
+    model = JaxAVENet(hardway=cfg.hardway)
+    shapes = jax.eval_shape(
+        lambda r, a, v: model.init(r, a, v, train=False), jax.random.PRNGKey(seed),
+        jnp.zeros((2, IMG, IMG, 3)), jnp.zeros((2, *jcfg.shape, 1)))
+    variables = numpy_init(shapes, seed)
+    state = AVTrainState.create(apply_fn=model.apply, params=variables["params"],
+                                tx=tx or make_optimizer(cfg.optim, 4),
+                                batch_stats=variables["batch_stats"])
+    return perturbed(state, seed)
+
+
+def numpy_train_state(model, rng, sample_inputs, optim_cfg, steps_per_epoch: int = 1):
+    """`avtubes.train.state.create_train_state` with values made by
+    `numpy_init` and `perturbed` from seed 0 instead of a compiled init (the
+    JAX CLIs build their state with it; at the tiny geometry it gives
+    `jax_avenet_state(0)`'s weights)."""
+    from avtubes.train.state import AVTrainState, make_optimizer
+
+    shapes = jax.eval_shape(lambda r, *a: model.init(r, *a, train=False), rng, *sample_inputs)
+    variables = numpy_init(shapes, 0)
+    return perturbed(AVTrainState.create(apply_fn=model.apply, params=variables["params"],
+                                         tx=make_optimizer(optim_cfg, steps_per_epoch),
+                                         batch_stats=variables["batch_stats"]), 0)
+
+
 def numpy_init(shapes, seed: int) -> dict:
     """Values for a flax variable tree of `jax.eval_shape` leaves, made with
     numpy from `seed`: He fan-out normal kernels, BatchNorm scale and
@@ -178,8 +212,6 @@ def eager_adam_update(state, call, convert) -> tuple[dict, dict]:
     ({port name: gradient}, {port name: parameter after one update}) for the
     audio tower.  Only the audio tower is differentiated, which halves the
     eager backward."""
-    import optax
-
     from avtubes.losses import hardway_loss
 
     def loss(aud):
@@ -188,11 +220,46 @@ def eager_adam_update(state, call, convert) -> tuple[dict, dict]:
 
     with jax.disable_jit():
         aud_grads = jax.device_get(jax.grad(loss)(state.params["audnet"]))
+    return audio_adam_update(state, aud_grads, convert)
+
+
+def chained_eager_audio_update(state, spec, loss_of_audio_features, convert,
+                               *args) -> tuple[dict, dict]:
+    """`eager_adam_update` of any loss of AVENet's pooled audio features
+    (B, 512) of the spectrograms `spec`, `loss_of_audio_features(feats,
+    *args)`, by the chain rule: the gradient with respect to the features is
+    taken jitted (the image side and the head, which jit right), and pulled
+    back through the audio tower WITHOUT jit (where jit is wrong on the CPU).
+    The same gradient as the whole loss's eager one, at half its eager work.
+    Pass the weights and inputs the loss reads as `args`: closed over, they
+    are constants of the compiled program, which XLA then folds, seconds
+    for a tower."""
+    def encode(aud):
+        return state.apply_fn({"params": {**state.params, "audnet": aud},
+                               "batch_stats": state.batch_stats}, spec, train=True,
+                              mutable=["batch_stats"], method="encode_audio")[0]
+
+    with jax.disable_jit():
+        feats, pull_back = jax.vjp(encode, state.params["audnet"])
+    feat_grads = jax.jit(jax.grad(loss_of_audio_features))(feats, *args)
+    with jax.disable_jit():
+        (aud_grads,) = pull_back(feat_grads)
+    return audio_adam_update(state, jax.device_get(aud_grads), convert)
+
+
+def audio_adam_update(state, aud_grads, convert) -> tuple[dict, dict]:
+    """({port name: gradient}, {port name: parameter after one update of the
+    JAX optimizer}) of the audio tower, from its JAX gradients `aud_grads`."""
+    import optax
+
     params = jax.device_get(state.params)
     grads = {**jax.tree_util.tree_map(np.zeros_like, params), "audnet": aud_grads}
-    updates, _ = state.tx.update(grads, state.tx.init(params), params)
+    # the optimizer (decay, Adam, a schedule of the step count) works tensor
+    # by tensor: the audio tower's update is its update in the whole tree
+    aud = params["audnet"]
+    updates, _ = jax.jit(state.tx.update)(aud_grads, state.tx.init(aud), aud)
+    new = {**params, "audnet": jax.device_get(optax.apply_updates(aud, updates))}
     stats = numpy_variables(state)["batch_stats"]
-    new = jax.device_get(optax.apply_updates(params, updates))
     g, p = (convert({"params": tree, "batch_stats": stats}) for tree in (grads, new))
     names = [k for k in g if k.startswith("audnet.")
              and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
