@@ -10,17 +10,26 @@ default, as in the JAX package; the header records it and the weights stay
 float32.
 
     python -m avtubes_torch.cli.export_model --summaries_dir ckpts/ \
-        --out model.avt [--audio_transport float32] [--validate [N]] \
-        [--validate_tol 0.01] [--device cuda]
+        --out model.avt [--quant int8] [--audio_transport float32] \
+        [--validate [N]] [--validate_tol 0.01] [--device cuda]
+
+`--quant int8` exports with int8 inference convolutions in both backbones
+(`models/resnet2d.py::QuantConv2d`: per-output-channel weight scales,
+per-sample activation scales, int8 x int8 -> int32 on the card's tensor
+cores); the header says `"quant": "int8"` and the weights are the
+checkpoint's own.  Any other `--quant` value exits, as in the JAX package.
+Unlike the dtype, int8 is an approximation: pass `--validate` to measure
+what it costs.
 
 `--validate [N]` scores the written artifact against the checkpoint's
-pipeline, in the same compute dtype, on an N-sample synthetic boxed eval
-set (default 16) and prints `validate: {...}`; a cIoU or AUC delta above `--validate_tol` exits
-with code 2 (the artifact stays on disk).  The checkpoint is read, and the
-validation runs, on `--device` (default: the card, or an error).
+UNQUANTIZED pipeline, in the same compute dtype, on an N-sample synthetic
+boxed eval set (default 16) and prints `validate: {...}`; a cIoU or AUC
+delta above `--validate_tol` exits with code 2 (the artifact stays on
+disk).  The checkpoint is read, and the validation runs, on `--device`
+(default: the card, or an error).
 
-`--quant int8` and `--s2d` (int8 inference convolutions, space-to-depth
-stems) are not ported and raise.
+`--s2d` (space-to-depth stems) raises: an MXU layout trick that is not to
+be ported (ROADMAP.md, "Not to port").
 """
 
 import json
@@ -34,10 +43,11 @@ from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import resolve_device
 from avtubes_torch.core.export import export_localizer, validate_artifact
 from avtubes_torch.data.spectrogram import SpectrogramConfig
+from avtubes_torch.models.avenet import AVENet
 from avtubes_torch.train.hardway import HARDWAY_TAG, build_model
 
-NOT_PORTED = ("{flag} is not ported to avtubes_torch (int8 convolutions and "
-              "space-to-depth stems: ROADMAP.md Queue 1 item 11)")
+S2D_NOT_PORTED = ("--s2d is not ported to avtubes_torch: space-to-depth stems are "
+                  "an MXU layout trick (ROADMAP.md, \"Not to port\")")
 
 
 def main(argv=None):
@@ -52,10 +62,11 @@ def main(argv=None):
         return default
 
     out = take("--out", "model.avt")
-    if take("--quant") is not None:
-        raise NotImplementedError(NOT_PORTED.format(flag="--quant"))
+    quant = take("--quant")
+    if quant not in (None, "int8"):
+        raise SystemExit(f"--quant supports only 'int8', got {quant!r}")
     if "--s2d" in argv:
-        raise NotImplementedError(NOT_PORTED.format(flag="--s2d"))
+        raise NotImplementedError(S2D_NOT_PORTED)
     audio_transport = take("--audio_transport", "float32")
     validate_tol = float(take("--validate_tol", "0.01"))
     validate_n = 0
@@ -83,13 +94,19 @@ def main(argv=None):
     else:
         print("WARNING: no checkpoint found — exporting untrained weights")
     model = model.to(device)
+    exported = model    # the checkpoint's own semantics: what --validate scores against
+    if quant == "int8":
+        # QuantConv2d keeps Conv2d's weight: the checkpoint loads as it is
+        exported = AVENet(hardway=model.hardway, compute_dtype=model.compute_dtype,
+                          quant_int8=True)
+        exported.load_state_dict(model.state_dict(), strict=True)
+        print("exporting with int8 inference convs")
 
-    blob = export_localizer(model, spec_cfg, image_size=d.image_size,
-                            audio_transport=audio_transport,
-                            extra_meta={"s2d": False, "quant": None})
+    blob = export_localizer(exported, spec_cfg, image_size=d.image_size,
+                            audio_transport=audio_transport, extra_meta={"s2d": False})
     Path(out).write_bytes(blob)
     print(f"wrote {out} ({len(blob) / 1e6:.1f} MB, audio_transport={audio_transport}, "
-          f"compute_dtype={cfg.train.compute_dtype})")
+          f"compute_dtype={cfg.train.compute_dtype}, quant={quant})")
 
     report = None
     if validate_n:

@@ -13,7 +13,9 @@ refuses to start rather than serve from the CPU (`--device cpu` asks for
 that explicitly).  The backbones run in the compute dtype the artifact's
 header names (`compute_dtype`: bfloat16, the export's default, or float32;
 an older header without it is float32), reported by `/healthz` and
-`/stats`; the weights and the head are float32.  Whether cuDNN may run
+`/stats` beside `quant` (`"int8"`: int8 convolutions in both backbones,
+`cli/export_model.py --quant int8`; `null`: plain); the weights and the head
+are float32.  Whether cuDNN may run
 float32 convolutions in TF32 follows `torch.backends.cudnn.allow_tf32`
 (PyTorch's default allows it), which this program leaves as it finds it; it
 turns cuDNN's autotuner on (`torch.backends.cudnn.benchmark`), which the
@@ -29,7 +31,7 @@ API (JSON over HTTP):
   GET  /healthz    -> {"status": "ok", "model": {...}}
   GET  /stats      -> micro-batcher counters (requests, batches,
                       batch-size histogram, device time) and the
-                      artifact's compute_dtype
+                      artifact's compute_dtype and quant
 
 Input contract (from the artifact header): images are decoded, shortest-
 side bicubic-resized and center-cropped to the export's image_size; audio
@@ -150,7 +152,8 @@ def build_handler(batcher, meta: dict, request_timeout_s: float,
                 self._json(200, {"status": "ok", "model": meta})
             elif self.path == "/stats":
                 self._json(200, {**batcher.snapshot(),
-                                 "compute_dtype": meta["compute_dtype"]})
+                                 "compute_dtype": meta["compute_dtype"],
+                                 "quant": meta["quant"]})
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -248,7 +251,8 @@ def main(argv=None):
           f"image_size={runner.image_size}, "
           f"num_samples={runner.num_samples}, "
           f"audio_transport={runner.audio_transport}, "
-          f"compute_dtype={runner.meta['compute_dtype']})", flush=True)
+          f"compute_dtype={runner.meta['compute_dtype']}, "
+          f"quant={runner.meta['quant']})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -19,8 +19,9 @@ the keys of the JAX package's artifact (image_size, samplerate, seconds,
 num_samples, batch, platforms, audio_transport) plus what is needed to
 rebuild the module: the `SpectrogramConfig` and `HardwayConfig` fields,
 ``"compute_dtype"`` (the backbones' dtype, 'float32' or 'bfloat16'; a header
-without it is float32) and ``"framework": "torch"``.  The weights are
-float32 in either dtype.
+without it is float32), ``"quant"`` (``"int8"``: every convolution an int8
+`QuantConv2d`; ``null`` or absent: plain) and ``"framework": "torch"``.  The
+weights are the plain model's float32 tensors in every case.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from avtubes_torch.models.hardway import HardwayConfig
 from avtubes_torch.models.resnet2d import dtype_name
 
 _MAGIC = b"AVTMETA1"
+#: the header's "quant" values: plain convolutions, or int8 ones
+QUANT_MODES = (None, "int8")
 
 
 class LocalizerPipeline(nn.Module):
@@ -114,8 +117,10 @@ def export_localizer(model: AVENet, spec_cfg: SpectrogramConfig,
         "audio_transport": audio_transport,
         "spectrogram": dataclasses.asdict(spec_cfg),
         "hardway": dataclasses.asdict(model.hardway),
-        "compute_dtype": dtype_name(model.compute_dtype),
         **(extra_meta or {}),
+        # what rebuilds the module comes from the module itself
+        "compute_dtype": dtype_name(model.compute_dtype),
+        "quant": "int8" if model.quant_int8 else None,
     }
     head = json.dumps(meta, sort_keys=True).encode()
     buf = io.BytesIO()
@@ -142,8 +147,12 @@ def load_artifact(blob: bytes, device: str | torch.device | None = None
             "this loader reads artifacts written by avtubes_torch only")
     spec_cfg = SpectrogramConfig(**meta["spectrogram"])
     meta["compute_dtype"] = meta.get("compute_dtype", "float32")
+    meta["quant"] = meta.get("quant")
+    if meta["quant"] not in QUANT_MODES:
+        raise ValueError(f"artifact quant is {meta['quant']!r}, not one of {QUANT_MODES}")
     model = AVENet(hardway=HardwayConfig(**meta["hardway"]),
-                   compute_dtype=meta["compute_dtype"])
+                   compute_dtype=meta["compute_dtype"],
+                   quant_int8=meta["quant"] == "int8")
     state = torch.load(io.BytesIO(blob[body + n :]), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state, strict=True)
@@ -161,7 +170,9 @@ def validate_artifact(model: AVENet, blob: bytes, spec_cfg: SpectrogramConfig,
                       device: str | torch.device | None = None) -> dict:
     """Score an artifact against the in-memory pipeline of `model`, in the
     model's own compute dtype (the checkpoint's semantics; the report's
-    `*_f32` keys carry the JAX package's names).
+    `*_f32` keys carry the JAX package's names).  `model` is the UNQUANTIZED
+    model (what the checkpoint holds): an int8 artifact's deltas are then
+    what its quantization costs, as the JAX package's `f32_state` shows.
 
     Both pipelines score the same synthetic boxed eval set (random frames
     and waveforms, a random rectangle of ground truth each, drawn from
@@ -214,6 +225,7 @@ def validate_artifact(model: AVENet, blob: bytes, spec_cfg: SpectrogramConfig,
     return {
         "n": int(n),
         "compute_dtype": meta["compute_dtype"],
+        "quant": meta["quant"],
         "ciou_f32": round(ciou_ref, 4),
         "ciou_artifact": round(ciou_art, 4),
         "ciou_delta": round(abs(ciou_art - ciou_ref), 4),

@@ -16,6 +16,10 @@ backbones' (`models/resnet2d.py`): the features come out in it, the audio
 tower's global max pool runs in it, and the hard-way head casts both to
 float32, so every `HardwayOutput` field is float32 whatever the dtype.  The
 parameters and running statistics are float32 in both.
+
+`quant_int8` (serving only) makes every convolution of both backbones an
+int8 `QuantConv2d` (`models/resnet2d.py`); the parameters are the plain
+model's, so a plain checkpoint loads unchanged, and the head stays float32.
 """
 
 from __future__ import annotations
@@ -30,14 +34,16 @@ from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 class AVENet(nn.Module):
     def __init__(self, hardway: HardwayConfig = HardwayConfig(),
                  generator: torch.Generator | None = None,
-                 compute_dtype: str | torch.dtype = torch.float32):
+                 compute_dtype: str | torch.dtype = torch.float32,
+                 quant_int8: bool = False):
         super().__init__()
         self.hardway = hardway
         self.compute_dtype = compute_dtype_of(compute_dtype)
+        self.quant_int8 = quant_int8
         self.imgnet = ResNet2D(modal="vision", generator=generator,
-                               compute_dtype=self.compute_dtype)
+                               compute_dtype=self.compute_dtype, quant_int8=quant_int8)
         self.audnet = ResNet2D(modal="audio", generator=generator,
-                               compute_dtype=self.compute_dtype)
+                               compute_dtype=self.compute_dtype, quant_int8=quant_int8)
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/16, W/16, 512) spatial features."""

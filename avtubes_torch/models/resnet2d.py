@@ -37,6 +37,14 @@ a bfloat16 input with float32 weights computes its batch statistics in
 float32 and advances the running variance with the unbiased n/(n-1) value,
 as `avtubes/models/norm.py` does.  No autocast region is involved, so
 nothing outside the backbone changes dtype.
+
+int8 inference (`quant_int8`, the JAX package's `QuantConv`): every
+convolution is a `QuantConv2d`, which keeps `Conv2d`'s float32 `weight`
+under the same `state_dict` key (a plain checkpoint loads unchanged) and
+runs int8 x int8 -> int32 with per-output-channel weight scales and
+per-sample activation scales (`ops/int8_conv.py`); BatchNorm, ReLU and the
+residual adds stay in the compute dtype.  Inference-only: `forward` in
+training mode raises, as the JAX package's does (round() has no gradient).
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from collections.abc import Sequence
 
 import torch
 from torch import nn
+
+from avtubes_torch.ops.int8_conv import quant_conv2d, quantize_weight
 
 STEM_CHANNELS = {"vision": 3, "audio": 1, "flow": 6}
 #: the compute dtypes of the backbones, by their flag names
@@ -78,8 +88,39 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> Conv2d:
-    return Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
+class QuantConv2d(Conv2d):
+    """int8 inference convolution, drop-in for `Conv2d`: the same float32
+    `weight` parameter, quantized per output channel once and cached until
+    the weight changes (its version, storage or device: `load_state_dict`
+    and `.to()` refresh it); the cache is a plain attribute, never in
+    `state_dict`.  The activation is quantized per sample at every call
+    (`ops/int8_conv.py::quant_conv2d`); the output is in the input's
+    dtype."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._quantized = None
+        self._quantized_key = None
+
+    def quantized_weight(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(wq (O, C, kh, kw) int8, wq packed (O, Kp) int8, sw (O,) float32)."""
+        w = self.weight
+        key = (w.device, w.data_ptr(), w._version)
+        if key != self._quantized_key:
+            with torch.no_grad():
+                self._quantized = quantize_weight(w.detach())
+            self._quantized_key = key
+        return self._quantized
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, packed, sw = self.quantized_weight()
+        return quant_conv2d(x, packed, sw, self.kernel_size, self.stride, self.padding)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
+          quant_int8: bool = False) -> Conv2d:
+    cls = QuantConv2d if quant_int8 else Conv2d
+    return cls(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
 def _bn(features: int) -> nn.BatchNorm2d:
@@ -89,15 +130,17 @@ def _bn(features: int) -> nn.BatchNorm2d:
 class BasicBlock(nn.Module):
     """Two 3x3 convs with identity/projection shortcut (ResNet v1 basic block)."""
 
-    def __init__(self, in_filters: int, filters: int, stride: int = 1):
+    def __init__(self, in_filters: int, filters: int, stride: int = 1,
+                 quant_int8: bool = False):
         super().__init__()
-        self.conv1 = _conv(in_filters, filters, 3, stride, 1)
+        self.conv1 = _conv(in_filters, filters, 3, stride, 1, quant_int8)
         self.bn1 = _bn(filters)
-        self.conv2 = _conv(filters, filters, 3, 1, 1)
+        self.conv2 = _conv(filters, filters, 3, 1, 1, quant_int8)
         self.bn2 = _bn(filters)
         self.downsample = None
         if stride != 1 or in_filters != filters:
-            self.downsample = nn.Sequential(_conv(in_filters, filters, 1, stride),
+            self.downsample = nn.Sequential(_conv(in_filters, filters, 1, stride,
+                                                  quant_int8=quant_int8),
                                             _bn(filters))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,7 +155,8 @@ class ResNet2D(nn.Module):
 
     Input (B, H, W, C_modal) -> output (B, H/16, W/16, 512), both NHWC — the
     /16 (not /32) is the stride-1 layer4 — in `compute_dtype`.  `generator`
-    seeds the init; None uses torch's global generator.
+    seeds the init; None uses torch's global generator.  `quant_int8`
+    makes every convolution a `QuantConv2d` (inference only).
     """
 
     #: the layout of activations and conv weights inside
@@ -124,13 +168,16 @@ class ResNet2D(nn.Module):
                  stage_strides: Sequence[int] = (1, 2, 2, 1),
                  bn_scale_noise: bool = True,
                  generator: torch.Generator | None = None,
-                 compute_dtype: str | torch.dtype = torch.float32):
+                 compute_dtype: str | torch.dtype = torch.float32,
+                 quant_int8: bool = False):
         super().__init__()
         if modal not in STEM_CHANNELS:
             raise ValueError(f"modal must be one of {tuple(STEM_CHANNELS)}, got {modal!r}")
         self.modal = modal
         self.compute_dtype = compute_dtype_of(compute_dtype)
-        setattr(self, STEM_NAMES[modal], _conv(STEM_CHANNELS[modal], 64, 7, 2, 3))
+        self.quant_int8 = quant_int8
+        setattr(self, STEM_NAMES[modal],
+                _conv(STEM_CHANNELS[modal], 64, 7, 2, 3, quant_int8))
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         cin = 64
@@ -138,7 +185,7 @@ class ResNet2D(nn.Module):
                 zip(stage_sizes, stage_filters, stage_strides)):
             layer = []
             for j in range(blocks):
-                layer.append(BasicBlock(cin, filters, stride if j == 0 else 1))
+                layer.append(BasicBlock(cin, filters, stride if j == 0 else 1, quant_int8))
                 cin = filters
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.num_layers = len(stage_sizes)
@@ -167,6 +214,9 @@ class ResNet2D(nn.Module):
             raise ValueError(
                 f"modal={self.modal!r} expects {expected_c} input channels "
                 f"(NHWC), got {tuple(x.shape)}")
+        if self.quant_int8 and self.training:
+            raise ValueError("quant_int8 is inference-only (round() has zero "
+                             "gradient); train with the plain model")
         stem = getattr(self, STEM_NAMES[self.modal])
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view
         x = x.contiguous(memory_format=self.memory_format)

@@ -32,7 +32,8 @@ def test_expected_modules_exist():
                  "utils.visual", "models.resnet3d", "models.fullmodel", "train.train3d",
                  "train.hardway_1frame", "cli.train_3d", "cli.train_hardway_1frame",
                  "utils.misc", "utils.flow_io", "cli.baseline_gaussian",
-                 "cli.test_quantitative", "cli.export_torch", "cli.visualize", "train.flow"):
+                 "cli.test_quantitative", "cli.export_torch", "cli.visualize", "train.flow",
+                 "ops.int8_conv", "utils.debug", "cli.profile", "tools.loadtest"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -234,6 +235,18 @@ def test_the_evaluation_clis_default_to_the_card(tmp_path, cli, args):
         env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
     assert not list(tmp_path.iterdir()) and "Hardway Test" not in out.stdout
+
+
+def test_profile_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", "avtubes_torch.cli.profile", "--mode", "infer", "--quant", "int8",
+         "--steps", "1", "--batch_size", "1", "--image_size", "32", "--samplerate", "8000",
+         "--audio_seconds", "1", "--logdir", str(tmp_path)],
+        cwd=ROOT, text=True, capture_output=True, timeout=300)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert "median" not in out.stdout and not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
