@@ -6,7 +6,8 @@ coalesced into batched device calls by
 `avtubes_torch.core.serving.MicroBatcher`.
 
     python -m avtubes_torch.cli.serve --model model.avt --port 8000 \
-        [--device cuda] [--max_batch 8] [--batch_window_ms 5] [--no_warmup]
+        [--device cuda] [--max_batch 8] [--batch_window_ms 5] [--no_warmup] \
+        [--fast_decode]
 
 `--device` defaults to `cuda`; on a machine without a card the server
 refuses to start rather than serve from the CPU (`--device cpu` asks for
@@ -19,7 +20,14 @@ are float32.  Whether cuDNN may run
 float32 convolutions in TF32 follows `torch.backends.cudnn.allow_tf32`
 (PyTorch's default allows it), which this program leaves as it finds it; it
 turns cuDNN's autotuner on (`torch.backends.cudnn.benchmark`), which the
-warmup of every batch bucket feeds.
+warmup of every batch bucket feeds.  The autotuner's cache is per thread, so
+the warmup runs in the micro-batcher's dispatcher thread, the one that runs
+every batch; the port is bound only once it is over.
+
+`--fast_decode` decodes request JPEGs with the native core's DCT-scaled
+path (`eval_frame_from_bytes(fast=True)`: about two levels from the exact
+decode); PNGs and a host without the native core take the exact path.
+`/healthz`, `/stats` and the start-up line say `fast_decode`.
 
 API (JSON over HTTP):
   POST /localize   {"image": <b64 JPEG/PNG>, "audio": <b64 WAV>}
@@ -28,10 +36,10 @@ API (JSON over HTTP):
                    -> {"heatmap": [[...]], "mask_rle": [...],
                        "mask_shape": [H, W], "box": [x0,y0,x1,y1]|null,
                        "latency_ms": ...}
-  GET  /healthz    -> {"status": "ok", "model": {...}}
+  GET  /healthz    -> {"status": "ok", "model": {...}, "fast_decode": bool}
   GET  /stats      -> micro-batcher counters (requests, batches,
-                      batch-size histogram, device time) and the
-                      artifact's compute_dtype and quant
+                      batch-size histogram, device time), the
+                      artifact's compute_dtype and quant, and fast_decode
 
 Input contract (from the artifact header): images are decoded, shortest-
 side bicubic-resized and center-cropped to the export's image_size; audio
@@ -99,7 +107,7 @@ class LocalizerHTTPServer(ThreadingHTTPServer):
 
 
 def build_handler(batcher, meta: dict, request_timeout_s: float,
-                  max_request_mb: float = 64.0):
+                  max_request_mb: float = 64.0, fast_decode: bool = False):
     import binascii
 
     from avtubes_torch.core.serving import mask_box, mask_to_rle
@@ -149,11 +157,13 @@ def build_handler(batcher, meta: dict, request_timeout_s: float,
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"status": "ok", "model": meta})
+                self._json(200, {"status": "ok", "model": meta,
+                                 "fast_decode": fast_decode})
             elif self.path == "/stats":
                 self._json(200, {**batcher.snapshot(),
                                  "compute_dtype": meta["compute_dtype"],
-                                 "quant": meta["quant"]})
+                                 "quant": meta["quant"],
+                                 "fast_decode": fast_decode})
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -177,7 +187,8 @@ def build_handler(batcher, meta: dict, request_timeout_s: float,
                 if not isinstance(req, dict):
                     raise ValueError("request body must be a JSON object")
                 frame = eval_frame_from_bytes(
-                    base64.b64decode(req["image"]), image_size)
+                    base64.b64decode(req["image"]), image_size,
+                    fast=fast_decode)
                 wave = encode_audio(_prepare_audio(req, samplerate,
                                                    num_samples))
             except (KeyError, TypeError, ValueError, OSError,
@@ -223,6 +234,11 @@ def main(argv=None):
                    help="reject request bodies larger than this with 413")
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running the batch buckets once at startup")
+    p.add_argument("--fast_decode", action="store_true",
+                   help="decode request JPEGs with the native DCT-scaled "
+                        "fast path (~2x the image-decode rate; ~2-level "
+                        "pixel drift vs the full-res decode). Non-JPEG "
+                        "payloads fall back to the exact path")
     a = p.parse_args(argv)
 
     import torch
@@ -236,23 +252,25 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     runner = ArtifactRunner(Path(a.model).read_bytes(), max_batch=a.max_batch,
                             device=a.device)
+    # the warmup runs in the dispatcher thread (cuDNN's autotuner cache is
+    # per thread); the port is bound once it is over
+    batcher = MicroBatcher(runner, window_ms=a.batch_window_ms, warmup=not a.no_warmup)
     if not a.no_warmup:
-        t0 = time.monotonic()
-        runner.warmup()
+        seconds = batcher.wait_warm()
         print(f"warmed {len(runner.buckets)} batch buckets {runner.buckets} "
-              f"in {time.monotonic() - t0:.1f}s", flush=True)
-    batcher = MicroBatcher(runner, window_ms=a.batch_window_ms)
+              f"in {seconds:.1f}s", flush=True)
     server = LocalizerHTTPServer(
         (a.host, a.port), build_handler(batcher, runner.meta,
                                         a.request_timeout_s,
-                                        a.max_request_mb))
+                                        a.max_request_mb,
+                                        fast_decode=a.fast_decode))
     print(f"serving {a.model} on http://{server.server_address[0]}:"
           f"{server.server_address[1]} (device={runner.device}, "
           f"image_size={runner.image_size}, "
           f"num_samples={runner.num_samples}, "
           f"audio_transport={runner.audio_transport}, "
           f"compute_dtype={runner.meta['compute_dtype']}, "
-          f"quant={runner.meta['quant']})", flush=True)
+          f"quant={runner.meta['quant']}, fast_decode={a.fast_decode})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

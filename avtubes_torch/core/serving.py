@@ -12,7 +12,10 @@ Counterpart of `avtubes/core/serving.py`.  Two pieces:
   * `MicroBatcher` — a dispatcher thread that coalesces concurrent
     single-sample requests into one device call: a batch of 8 costs the last
     arrival one batching window and saves 7 passes through the pipeline at
-    batch 1, where the card is mostly idle.
+    batch 1, where the card is mostly idle.  It warms the runner's buckets
+    in that same thread before it takes a request: cuDNN's autotuner cache
+    is per thread, so a warm-up in any other thread leaves the served
+    batches to tune again.
 
 Plus the mask wire format: run-length encoding of the binary mask, and its
 bounding box.
@@ -137,14 +140,18 @@ class ArtifactRunner:
         return pair
 
     def warmup(self) -> None:
-        """Run every bucket once up front: builds the CUDA kernels, lets
-        cuDNN pick its algorithms and fills the allocator's cache, so the
-        first request does not pay for any of it."""
-        for b in self.buckets:
-            self.run(
-                np.zeros((b, self.image_size, self.image_size, 3), np.uint8),
-                np.zeros((b, *self.audio_shape), self.audio_dtype),
-            )
+        """Run every bucket twice up front, so the first request pays for
+        none of it: the first pass builds the CUDA kernels and lets cuDNN's
+        autotuner pick its algorithms, the second runs what was picked and
+        settles the allocator's cache (on an H100, after one pass the first
+        served bf16 batch took 1.1-5.1x the median of the later ones, after
+        two 0.6-0.95x: `scripts/profile_torch_warmup.py`)."""
+        for _ in range(2):
+            for b in self.buckets:
+                self.run(
+                    np.zeros((b, self.image_size, self.image_size, 3), np.uint8),
+                    np.zeros((b, *self.audio_shape), self.audio_dtype),
+                )
 
     def prepare_audio(self, waves: np.ndarray) -> np.ndarray:
         """Encode (n, num_samples) float waveforms into the artifact's
@@ -228,11 +235,21 @@ class MicroBatcher:
     up to `window_ms` (or until `runner.max_batch` requests are in hand)
     before launching one device call.  Under no concurrency the added
     latency is one window; under load the batch fills instantly.
+
+    With `warmup` (the default) the dispatcher thread first runs
+    `runner.warmup()`, in the thread that runs every batch, so cuDNN's
+    per-thread autotuner picks its algorithms there; requests submitted
+    meanwhile wait in the queue.  `wait_warm` blocks until it is done.
     """
 
-    def __init__(self, runner: ArtifactRunner, window_ms: float = 5.0):
+    def __init__(self, runner: ArtifactRunner, window_ms: float = 5.0,
+                 warmup: bool = True):
         self.runner = runner
         self.window_s = float(window_ms) / 1e3
+        self._warmup = warmup
+        self._warm = threading.Event()
+        self._warmup_error: BaseException | None = None
+        self.warmup_seconds = 0.0
         self._queue: queue.Queue = queue.Queue()
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
@@ -241,6 +258,15 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="avtubes-microbatch")
         self._thread.start()
+
+    def wait_warm(self, timeout: float | None = None) -> float:
+        """Block until the dispatcher's warm-up is over; its seconds (0.0
+        without one).  Raises the warm-up's exception, or TimeoutError."""
+        if not self._warm.wait(timeout):
+            raise TimeoutError("the micro-batcher's warm-up did not finish")
+        if self._warmup_error is not None:
+            raise self._warmup_error
+        return self.warmup_seconds
 
     def submit(self, frame: np.ndarray, wave: np.ndarray,
                timeout: float | None = None):
@@ -268,6 +294,14 @@ class MicroBatcher:
     # ------------------------------------------------------------ internal
 
     def _loop(self) -> None:
+        if self._warmup:
+            t0 = time.monotonic()
+            try:
+                self.runner.warmup()
+            except Exception as e:  # noqa: BLE001 - raised by wait_warm
+                self._warmup_error = e
+            self.warmup_seconds = time.monotonic() - t0
+        self._warm.set()
         stop = False
         while not stop:
             first = self._queue.get()

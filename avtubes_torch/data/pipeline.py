@@ -18,11 +18,15 @@ the worker count; `device_prefetch` stages `depth` batches on the card ahead
 of the consumer: pinned host tensors, copies on a side CUDA stream, and an
 event the consumer's stream waits on before it reads a batch.
 
-The hard-way test loads per sample (`make_hardway_loader`): the JAX
-package's batched native decoder is not ported (nor are the native C++
-WAV/JPEG decoders: the numpy and PIL paths run instead).  `cv2` is imported
-inside `PerFrameEvalSource.load`, as in the JAX package, so nothing else
-needs it.
+WAVs and JPEGs decode through the port's native core
+(`avtubes_torch.native`) where it is available, as in the JAX package, with
+the numpy and PIL paths as the fallback.  The hard-way test loads either per
+sample (`BatchLoader` over `HardwayTestSource`) or a batch at a time
+(`BatchedHardwayLoader`: one C++ call for a batch's JPEGs and one for its
+WAVs, fused with the host STFT for the spectrogram transports);
+`make_hardway_loader` picks the JAX package's default for the transport.
+`cv2` is imported inside `PerFrameEvalSource.load`, as in the JAX package,
+so nothing else needs it.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from avtubes_torch import native
 from avtubes_torch.core.config import DataConfig
 from avtubes_torch.data.audio import prepare_waveform, read_wav
 from avtubes_torch.data.transforms import (
@@ -53,13 +58,31 @@ def load_prepared_wav(path, cfg: DataConfig) -> np.ndarray:
     """Decode + prepare a WAV to exactly samplerate*seconds float32 samples
     (files whose samplerate differs from the dataset's are zero-padded or
     truncated to the nominal length, so batches stay rectangular), then
-    apply the audio transport (`_finalize_waveform`)."""
+    apply the audio transport (`_finalize_waveform`).
+
+    The native C++ decoder (RIFF parse + downmix/tile/clip into the fixed
+    buffer) runs where it is available, and a file it cannot decode is
+    skipped; the numpy path runs otherwise."""
+    if native.available():
+        out = native.decode_wav_prepared(path, cfg.audio_seconds,
+                                         cfg.samplerate * cfg.audio_seconds)
+        if out is None:
+            raise SkippedSampleError(f"{path}: native WAV decode failed")
+        wav = out[0]
+    else:
+        wav = _python_prepared_wav(path, cfg)
+    return _finalize_waveform(wav, cfg)
+
+
+def _python_prepared_wav(path, cfg: DataConfig) -> np.ndarray:
+    """Pure-Python decode + prepare to exactly samplerate*seconds float32
+    samples."""
     target = cfg.samplerate * cfg.audio_seconds
     samples, sr = read_wav(path)
     wav = prepare_waveform(samples, sr, cfg.audio_seconds).astype(np.float32)
     if wav.shape[0] < target:
         wav = np.pad(wav, (0, target - wav.shape[0]))
-    return _finalize_waveform(wav[:target], cfg)
+    return wav[:target]
 
 
 def _finalize_waveform(wav: np.ndarray, cfg: DataConfig) -> np.ndarray:
@@ -69,9 +92,11 @@ def _finalize_waveform(wav: np.ndarray, cfg: DataConfig) -> np.ndarray:
     'int16'      PCM16 quantization (exact inverse of the reader's /32768 —
                  lossless for 16-bit sources, half the bytes);
     'spec_int16' host-computed log-spectrogram as int16 fixed point (~3e-5
-                 quantization, half the bytes again); the batch still
-                 travels under the "waveform" key and `log_spectrogram`'s
-                 shape dispatch dequantizes it on the device;
+                 quantization, half the bytes again; the native C++ real FFT
+                 where it is available, else the numpy path); the batch
+                 still travels under the "waveform" key and
+                 `log_spectrogram`'s shape dispatch dequantizes it on the
+                 device;
     'spec_int8'  opt-in int8 spectrogram (~8e-3 quantization, not
                  parity-grade).
     """
@@ -84,8 +109,11 @@ def _finalize_waveform(wav: np.ndarray, cfg: DataConfig) -> np.ndarray:
     )
 
     if cfg.audio_transport in ("spec_int16", "spec_int8"):
-        spec_cfg = SpectrogramConfig(samplerate=cfg.samplerate, seconds=cfg.audio_seconds)
-        out = quantize_int16_spectrogram(log_spectrogram_np_f32(wav, spec_cfg))
+        sc = SpectrogramConfig(samplerate=cfg.samplerate, seconds=cfg.audio_seconds)
+        out = native.log_spectrogram_i16(wav, sc.samplerate, sc.nperseg, sc.noverlap,
+                                         sc.num_freqs, sc.num_frames)
+        if out is None:
+            out = quantize_int16_spectrogram(log_spectrogram_np_f32(wav, sc))
         return spec_int16_to_int8(out) if cfg.audio_transport == "spec_int8" else out
     if cfg.audio_transport == "int16":
         return quantize_int16_waveform(wav)
@@ -112,7 +140,8 @@ class ClipTrainSource:
                 paths = [frame_dir / "8.jpg"]
             else:
                 paths = [frame_dir / f"{i}.jpg" for i in range(t)]
-            clip = host_load_train_clip(paths, rng, self.cfg.image_size)
+            clip = host_load_train_clip(paths, rng, self.cfg.image_size,
+                                        threads=self.cfg.clip_decode_threads)
             wav = load_prepared_wav(self.root / "audio" / f"{vid}.wav", self.cfg)
         except (OSError, ValueError) as e:
             raise SkippedSampleError(f"{vid}: {e}") from e
@@ -299,11 +328,105 @@ class BatchLoader:
             yield _collate(buf)
 
 
+class BatchedHardwayLoader:
+    """Batch-granular native decode of the hard-way test set.
+
+    One C++ call decodes every JPEG of a batch (fused decode + PIL-parity
+    resize + centre crop, its own thread pool) and one decodes every WAV;
+    under the spectrogram transports that call fuses decode + prepare +
+    STFT, so the waveform never re-enters Python.  A file the native core
+    declines (libjpeg rejects CMYK JPEGs, for one) is retried through the
+    Python path, so both loader modes score the same samples; what still
+    fails is dropped from its batch and counted, as `BatchLoader` does.
+    Its samples equal the per-sample loader's (whose batches close over a
+    skipped sample; these keep their files' grouping).  Needs the native
+    core.
+    """
+
+    def __init__(self, root: str | Path, ids: list[str], cfg: DataConfig, batch_size: int):
+        self.root = Path(root)
+        self.ids = ids
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.threads = max(2, cfg.n_threads)   # the C++ pool's decoders
+        self.skipped = 0
+        self.epoch_skipped = 0
+
+    def __len__(self) -> int:
+        return -(-len(self.ids) // self.batch_size)
+
+    def epoch(self, epoch: int = 0) -> Iterator[dict[str, Any]]:
+        from avtubes_torch.data.spectrogram import SpectrogramConfig, spec_int16_to_int8
+
+        self.epoch_skipped = 0
+        cfg = self.cfg
+        target = cfg.samplerate * cfg.audio_seconds
+        spec_transport = cfg.audio_transport in ("spec_int16", "spec_int8")
+        sc = SpectrogramConfig(samplerate=cfg.samplerate, seconds=cfg.audio_seconds)
+        for lo in range(0, len(self.ids), self.batch_size):
+            vids = self.ids[lo : lo + self.batch_size]
+            fpaths = [self.root / "frames" / f"{v}.jpg" for v in vids]
+            wpaths = [self.root / "audio" / f"{v}.wav" for v in vids]
+            frames, fok = native.decode_jpeg_shortest_batch(
+                fpaths, cfg.image_size, cfg.image_size,
+                threads=self.threads, scaled=False)  # evaluation: parity-grade
+            if spec_transport:
+                waves, rates = native.decode_wav_spec_batch(
+                    wpaths, cfg.audio_seconds, target, sc.samplerate, sc.nperseg,
+                    sc.noverlap, sc.num_freqs, sc.num_frames, threads=self.threads)
+                if cfg.audio_transport == "spec_int8":
+                    waves = spec_int16_to_int8(waves)
+            else:
+                waves, rates = native.decode_wav_batch(
+                    wpaths, cfg.audio_seconds, target, threads=self.threads)
+            ok = (fok == 1) & (rates > 0)
+            for i in np.nonzero(~ok)[0]:
+                try:
+                    if fok[i] != 1:
+                        # falls through to PIL when the native decode declines
+                        frames[i] = host_load_eval_frame(fpaths[i], cfg.image_size)
+                    if rates[i] <= 0:
+                        wav_i = _python_prepared_wav(wpaths[i], cfg)
+                        waves[i] = _finalize_waveform(wav_i, cfg) if spec_transport else wav_i
+                    ok[i] = True
+                except (OSError, ValueError):
+                    pass
+            n_bad = int((~ok).sum())
+            if n_bad:
+                self.skipped += n_bad
+                self.epoch_skipped += n_bad
+                for v, good in zip(vids, ok):
+                    if not good:
+                        print(f"[loader] epoch {epoch}: skipping sample: {v}")
+            if not ok.any():
+                continue
+            if n_bad:
+                frames, waves = frames[ok], waves[ok]
+                vids = [v for v, g in zip(vids, ok) if g]
+            # spectrogram payloads come finished from the fused call;
+            # waveform batches are quantized here, elementwise
+            yield {"frame": frames,
+                   "waveform": waves if spec_transport else _finalize_waveform(waves, cfg),
+                   "id": list(vids)}
+
+
 def make_hardway_loader(root, ids, cfg: DataConfig, batch_size: int,
-                        num_workers: int = 4) -> BatchLoader:
-    """Hard-way test loader: decode-ahead worker threads, one sample each, in
-    order, the last partial batch kept (the JAX package's `per_sample` mode;
-    its batched native decoder is not ported)."""
+                        num_workers: int = 4, mode: str | None = None):
+    """Hard-way test loader, in order, the last partial batch kept.
+
+    mode="per_sample": decode-ahead worker threads, one sample each
+    (`BatchLoader` over `HardwayTestSource`).  mode="batched":
+    `BatchedHardwayLoader`, one native call a batch, which needs the native
+    core and otherwise falls back to per-sample.  The default is the JAX
+    package's: batched for the spectrogram transports (the fused decode +
+    prepare + STFT never re-enters Python), per-sample otherwise;
+    AVTUBES_EVAL_LOADER overrides it for every run and `mode` for one."""
+    import os
+
+    default = "batched" if cfg.audio_transport.startswith("spec_int") else "per_sample"
+    mode = mode or os.environ.get("AVTUBES_EVAL_LOADER", default)
+    if mode == "batched" and native.available():
+        return BatchedHardwayLoader(root, ids, cfg, batch_size)
     return BatchLoader(HardwayTestSource(root, ids, cfg), batch_size,
                        num_workers=num_workers, shuffle=False, drop_last=False)
 

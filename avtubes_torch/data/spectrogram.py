@@ -160,9 +160,11 @@ def audio_payload_spec(transport: str, cfg: SpectrogramConfig
 def prepare_audio_payload(waves: np.ndarray, transport: str,
                           cfg: SpectrogramConfig) -> np.ndarray:
     """Host-side encode of (n, num_samples) float waveforms into a
-    transport's wire payload.  The spec transports compute the float32 host
-    log-spectrogram per row; `log_spectrogram`'s passthrough branch is the
-    decoder for every output."""
+    transport's wire payload (the batched counterpart of the training
+    pipeline's `_finalize_waveform`).  The spec transports compute the host
+    log-spectrogram per row: the native C++ STFT where it is available, the
+    float32 numpy path otherwise; `log_spectrogram`'s passthrough branch is
+    the decoder for every output."""
     waves = np.ascontiguousarray(np.asarray(waves), dtype=np.float32)
     if waves.ndim != 2 or waves.shape[1] != cfg.num_samples:
         raise ValueError(f"expected (n, {cfg.num_samples}) float waveforms, "
@@ -174,8 +176,15 @@ def prepare_audio_payload(waves: np.ndarray, transport: str,
     if transport not in ("spec_int16", "spec_int8"):
         raise ValueError(f"unknown audio transport {transport!r}; "
                          f"expected one of {AUDIO_TRANSPORTS}")
-    spec16 = np.stack([quantize_int16_spectrogram(log_spectrogram_np_f32(w, cfg))
-                       for w in waves])
+    from avtubes_torch import native
+
+    rows = []
+    for w in waves:
+        out = native.log_spectrogram_i16(w, cfg.samplerate, cfg.nperseg, cfg.noverlap,
+                                         cfg.num_freqs, cfg.num_frames)
+        rows.append(out if out is not None
+                    else quantize_int16_spectrogram(log_spectrogram_np_f32(w, cfg)))
+    spec16 = np.stack(rows)
     return spec_int16_to_int8(spec16) if transport == "spec_int8" else spec16
 
 

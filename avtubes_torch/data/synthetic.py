@@ -10,6 +10,10 @@ metadata CSVs/XMLs) with deterministic random content:
 
 `mp4=True` also writes `root/videos/<id>.mp4` (OpenCV, `mp4v` at 10 fps)
 for the per-frame whole-video test (`data/pipeline.py::PerFrameEvalSource`).
+`photo=True` makes each clip's base image photo-like (smooth gradients plus
+mild noise) instead of uniform noise, which no camera produces and which
+JPEG decoders take unrealistically long over: the host decode rates of
+`scripts/profile_torch_loader.py` and `chip_smoke.py` are measured on it.
 """
 
 from __future__ import annotations
@@ -29,13 +33,24 @@ _XML = """<annotation><object>
 def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 16,
                             samplerate: int = 22050, seconds: int = 2,
                             image_hw: tuple[int, int] = (256, 320), seed: int = 0,
-                            mp4: bool = False) -> list[str]:
+                            mp4: bool = False, photo: bool = False) -> list[str]:
     """Create a tiny but structurally complete dataset; returns the video ids.
-    The same arguments write the same files as the JAX package's."""
+    The same arguments (photo=False) write the same files as the JAX
+    package's."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
 
     root = Path(root)
     rng = np.random.RandomState(seed)
+    # JPEG encoding releases the GIL: the files are written by a pool, in
+    # any order, while the draws stay in this thread's order
+    pool = ThreadPoolExecutor(8)
+    saved = []
+
+    def save(img: np.ndarray, path: Path) -> None:
+        saved.append(pool.submit(Image.fromarray(img).save, path, quality=90))
+
     ids = [f"{900000000 + i}" for i in range(n_videos)]
     (root / "metadata").mkdir(parents=True, exist_ok=True)
     (root / "anno").mkdir(exist_ok=True)
@@ -44,13 +59,20 @@ def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 1
     for vid in ids:
         vdir = root / "videos" / vid
         vdir.mkdir(parents=True, exist_ok=True)
-        base = rng.randint(0, 200, (h, w, 3)).astype(np.uint8)
+        if photo:
+            yy, xx = np.mgrid[0:h, 0:w]
+            phase = rng.uniform(0, 2 * np.pi, 3)
+            grad = [100 + 80 * np.sin(2 * np.pi * (xx / w + yy / h) * (c + 1) / 2 + phase[c])
+                    for c in range(3)]
+            base = np.clip(np.stack(grad, -1) + rng.randn(h, w, 3) * 6, 0, 200).astype(np.uint8)
+        else:
+            base = rng.randint(0, 200, (h, w, 3)).astype(np.uint8)
         clip = []
         for i in range(frames):
             img = np.clip(base.astype(np.int32) + rng.randint(-20, 20), 0, 255).astype(np.uint8)
             clip.append(img)
-            Image.fromarray(img).save(vdir / f"{i}.jpg", quality=90)
-        Image.fromarray(base).save(root / "frames" / f"{vid}.jpg", quality=90)
+            save(img, vdir / f"{i}.jpg")
+        save(base, root / "frames" / f"{vid}.jpg")
         if mp4:
             import cv2
 
@@ -67,6 +89,9 @@ def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 1
         (root / "anno" / f"{vid}.xml").write_text(
             _XML.format(x0=64, y0=64, x1=192, y1=192))
 
+    pool.shutdown()
+    for f in saved:
+        f.result()
     train_rows = "\n".join(f"{v},0" for v in ids) + "\n"
     for name in ("flickr_train5k.csv", "flickr_train10k.csv", "flickr_test.csv",
                  "flickr_val.csv"):

@@ -3,10 +3,16 @@
 Counterpart of `avtubes/data/transforms.py`:
 
   * HOST (per sample, variable shapes): decode, aspect-preserving
-    shortest-side bicubic resize (PIL), the centre crop of evaluation and the
-    one random crop shared by every frame of a training clip.  Output:
-    fixed-shape uint8.  PIL is imported inside the functions that use it;
-    the JAX package's native JPEG decoder is not ported, so decoding is PIL's.
+    shortest-side bicubic resize, the centre crop of evaluation and the one
+    random crop shared by every frame of a training clip.  Output:
+    fixed-shape uint8.  JPEGs go through the port's native core
+    (`avtubes_torch.native`: libjpeg + a PIL-compatible bicubic resize in
+    C++, off the GIL) where it is available, exactly where the JAX package
+    uses its own: training clips with libjpeg's DCT-domain scaling (about
+    two levels from PIL), evaluation frames at full resolution (within one
+    level of PIL), served frames scaled only under `fast=True`.  PIL, imported
+    inside the functions that use it, decodes everything else and is the
+    fallback.
   * DEVICE (batched, fixed shapes): ImageNet normalization and the training
     augmentation — view 1 = a random horizontal flip of the host-cropped
     clip; view 2 = RandomCrop(0.7 size) -> ColorJitter(.5, .5, .5, .5) in a
@@ -35,6 +41,9 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from avtubes_torch import native
+from avtubes_torch.native import shortest_side_dims
+
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
@@ -48,17 +57,15 @@ FIXED_ORDER = (0, 1, 2, 3)
 
 # ---------------------------------------------------------------- host side
 
-def shortest_side_dims(h: int, w: int, target: int) -> tuple[int, int]:
-    """(rh, rw) of a shortest-side resize to `target` (round half to even)."""
-    if w < h:
-        return max(1, round(h * target / w)), target
-    return target, max(1, round(w * target / h))
-
-
 def open_rgb(path):
-    """Open an image as an RGB PIL.Image."""
+    """Open an image as an RGB PIL.Image, through the native libjpeg decoder
+    where it is available (no PIL decode), else PIL."""
     from PIL import Image
 
+    if str(path).lower().endswith((".jpg", ".jpeg")) and native.available():
+        arr = native.decode_jpeg(path)
+        if arr is not None:
+            return Image.fromarray(arr)
     return Image.open(path).convert("RGB")
 
 
@@ -84,17 +91,43 @@ def host_random_crop_params(rng: np.random.RandomState, h: int, w: int, size: in
     return top, left
 
 
+def _is_jpeg(path) -> bool:
+    return str(path).lower().endswith((".jpg", ".jpeg"))
+
+
 def host_load_train_clip(paths, rng: np.random.RandomState, image_size: int = 224,
-                         resize_factor: float = 1.1) -> np.ndarray:
+                         resize_factor: float = 1.1, threads: int = 1) -> np.ndarray:
     """Decode clip frames -> shortest-side resize (1.1x) -> one random crop
-    shared by all frames, drawn from frame 0's geometry.  Returns uint8
-    (T, size, size, 3).  The same `rng` gives the crop the JAX package's
-    PIL path draws."""
+    shared by all frames, drawn from frame 0's resized geometry.  Returns
+    uint8 (T, size, size, 3); the same `rng` gives the JAX package's clip.
+
+    With the native core, a clip of JPEGs is one fused C++ call
+    (`decode_clip_train`, `threads` decoders); a frame it declines falls
+    back to the per-frame native decode, then to PIL.  The crop is drawn
+    once, before the fused call, so the rng stream does not depend on which
+    path succeeded."""
     target = int(image_size * resize_factor)
+    use_native = native.available()
     crop = None
+    if use_native and len(paths) > 1 and all(_is_jpeg(p) for p in paths):
+        size0 = native.jpeg_size(paths[0])
+        if size0 is not None:
+            rh, rw = native.shortest_side_dims(*size0, target)
+            crop = host_random_crop_params(rng, rh, rw, image_size)
+            clip = native.decode_clip_train(paths, target, image_size, crop[0], crop[1],
+                                            threads=threads, scaled=True)
+            if clip is not None:
+                return clip
     frames = []
     for p in paths:
-        arr = np.asarray(host_resize_shortest(open_rgb(p), target))
+        arr = None
+        if use_native and _is_jpeg(p):
+            # no crop here: the crop below is shared by the whole clip.
+            # scaled=True: DCT-domain scaling, ~2 levels from PIL, far below
+            # the crop and jitter augmentation's noise
+            arr = native.decode_jpeg_shortest(p, target, scaled=True)
+        if arr is None:
+            arr = np.asarray(host_resize_shortest(open_rgb(p), target))
         if crop is None:
             crop = host_random_crop_params(rng, arr.shape[0], arr.shape[1], image_size)
         top, left = crop
@@ -103,15 +136,34 @@ def host_load_train_clip(paths, rng: np.random.RandomState, image_size: int = 22
 
 
 def host_load_eval_frame(path, image_size: int = 224) -> np.ndarray:
-    """Decode -> shortest-side resize to size -> centre crop.  uint8 (H, W, 3)."""
+    """Decode -> shortest-side resize to size -> centre crop.  uint8 (H, W, 3).
+
+    A JPEG takes the native fused decode + bicubic resize + crop at full
+    resolution (`scaled=False`: within one level of PIL, so evaluation
+    inputs stay parity-grade); PIL computes the same transform otherwise."""
+    if _is_jpeg(path) and native.available():
+        out = native.decode_jpeg_shortest(path, image_size, crop=image_size, scaled=False)
+        if out is not None:
+            return out
     img = host_resize_shortest(open_rgb(path), image_size)
     return host_center_crop(np.asarray(img), image_size)
 
 
-def eval_frame_from_bytes(data: bytes, image_size: int = 224) -> np.ndarray:
+def eval_frame_from_bytes(data: bytes, image_size: int = 224,
+                          fast: bool = False) -> np.ndarray:
     """An in-memory encoded image (serving requests arrive as bytes, not
     files): decode -> shortest-side bicubic resize -> centre crop.
-    uint8 (size, size, 3)."""
+    uint8 (size, size, 3).
+
+    Default: PIL decode + the parity-grade resize and crop.  fast=True
+    (`serve --fast_decode`): the native decode with libjpeg's DCT-domain M/8
+    scaling, about two levels from the exact decode.  Non-JPEG payloads
+    (PNG etc.) and the native core's absence take the default path."""
+    if fast and native.available():
+        out = native.decode_jpeg_shortest_bytes(data, image_size, crop=image_size,
+                                                scaled=True)
+        if out is not None:
+            return out
     from io import BytesIO
 
     from PIL import Image

@@ -265,8 +265,9 @@ def end_of_epoch_preempted(state: TrainState, loader: BatchLoader, epoch: int,
 
 def hardway_test(state: TrainState, test_src, d, spec_cfg: SpectrogramConfig, gt_lookup,
                  epoch: int, logger: MetricLogger, record: int = 0) -> dict[str, float]:
-    """The hard-way test of one epoch, logged: samples decoded by worker
-    threads, in order, the last partial batch kept."""
+    """The hard-way test of one epoch, logged: samples in order, the last
+    partial batch kept, decoded by `make_hardway_loader`'s mode for the
+    transport (AVTUBES_EVAL_LOADER overrides it)."""
     eval_bsz = min(d.eval_batch_size, len(test_src))
     if isinstance(test_src, HardwayTestSource):
         test_loader = make_hardway_loader(test_src.root, test_src.ids, d, eval_bsz,

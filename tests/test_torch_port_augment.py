@@ -20,9 +20,9 @@ ATOL = 1e-5      # before normalisation: float32 sums in another order
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """The JAX package's PIL decode path (its native decoder scales in the
-    DCT domain, which the port does not have)."""
+    """Both packages' PIL decode paths: each native decoder switched off."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
 
 
 def _write_jpegs(tmp_path, n, hw, seed=0):
@@ -55,6 +55,18 @@ def test_host_load_train_clip_equals_the_pil_path(tmp_path, pil_only, hw):
     assert got.dtype == np.uint8 and got.shape == (3, 64, 64, 3)
     np.testing.assert_array_equal(got, want)
     assert a.randint(1 << 30) == b.randint(1 << 30)      # the same draws were made
+
+
+def test_host_load_train_clip_and_eval_frame_equal_the_native_path(tmp_path):
+    """Native decode on in both packages: libjpeg's DCT-scaled training clip
+    and the full-resolution evaluation frame are bit-equal."""
+    paths = _write_jpegs(tmp_path, 3, (120, 96))
+    a, b = np.random.RandomState(3), np.random.RandomState(3)
+    np.testing.assert_array_equal(tt.host_load_train_clip(paths, a, 64),
+                                  jt.host_load_train_clip(paths, b, 64))
+    assert a.randint(1 << 30) == b.randint(1 << 30)
+    np.testing.assert_array_equal(tt.host_load_eval_frame(paths[0], 64),
+                                  jt.host_load_eval_frame(paths[0], 64))
 
 
 def test_host_eval_frame_and_clip_equal_the_pil_path(tmp_path, pil_only):

@@ -135,7 +135,18 @@ def test_eval_steps_match_and_leave_the_model_as_they_found_it(models):
 # ---------------------------------------------------------- the loops
 
 def test_evaluate_hardway_gives_the_jax_package_s_ciou_and_auc(tmp_path, models, monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)   # the JAX package's PIL path
+    monkeypatch.setattr(native, "available", lambda: False)   # both packages' PIL paths
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
+    _evaluate_hardway_both(tmp_path, models)
+
+
+def test_evaluate_hardway_with_native_decode_gives_the_jax_package_s(tmp_path, models):
+    """Native decode on in both packages (the frames at full resolution,
+    the WAVs in C++)."""
+    _evaluate_hardway_both(tmp_path, models)
+
+
+def _evaluate_hardway_both(tmp_path, models):
     js, model = models
     ids = write_synthetic_dataset(tmp_path, n_videos=5, frames=2, samplerate=8000, seconds=1,
                                   image_hw=(80, 96))

@@ -154,9 +154,14 @@ def test_a_preempted_epoch_is_saved_under_the_previous_number(tmp_path, monkeypa
 
 @pytest.fixture
 def dataset(tmp_path, monkeypatch):
-    """The on-disk synthetic dataset, read by the JAX package through PIL
-    and numpy (the port has no native decoder)."""
+    """The on-disk synthetic dataset, read by both packages through PIL and
+    numpy (each native decoder switched off)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
+    return _dataset_args(tmp_path)
+
+
+def _dataset_args(tmp_path) -> list[str]:
     root = tmp_path / "data"
     write_synthetic_dataset(root, n_videos=3, frames=T, samplerate=8000, seconds=1,
                             image_hw=(72, 80))
@@ -164,6 +169,11 @@ def dataset(tmp_path, monkeypatch):
             "--image_size", str(IMG), "--frame_density", str(T), "--batch_size", "2",
             "--samplerate", "8000", "--audio_seconds", "1", "--n_threads", "2",
             "--summaries_dir", str(tmp_path / "ckpt")]
+
+
+def test_clip_pair_batches_are_the_jax_package_s_with_native_decode(tmp_path):
+    """Native decode on in both packages: the fused DCT-scaled clip decode."""
+    test_clip_pair_batches_are_the_jax_package_s(_dataset_args(tmp_path))
 
 
 def test_clip_pair_batches_are_the_jax_package_s(dataset):

@@ -33,7 +33,10 @@ def test_expected_modules_exist():
                  "train.hardway_1frame", "cli.train_3d", "cli.train_hardway_1frame",
                  "utils.misc", "utils.flow_io", "cli.baseline_gaussian",
                  "cli.test_quantitative", "cli.export_torch", "cli.visualize", "train.flow",
-                 "ops.int8_conv", "utils.debug", "cli.profile", "tools.loadtest"):
+                 "ops.int8_conv", "utils.debug", "cli.profile", "tools.loadtest",
+                 "native", "cli.doctor", "data.sampler", "tools.validate",
+                 "tools.create_training_set", "tools.convert_to_jpg",
+                 "tools.convert_jpg_to_mp4", "tools.download_flickr"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -74,6 +77,8 @@ def test_light_module_import_stays_light():
                                   ROOT / "scripts" / "profile_torch_train_step.py",
                                   ROOT / "scripts" / "profile_torch_kernel_variants.py",
                                   ROOT / "scripts" / "profile_torch_dtype_matrix.py",
+                                  ROOT / "scripts" / "profile_torch_loader.py",
+                                  ROOT / "scripts" / "profile_torch_warmup.py",
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):

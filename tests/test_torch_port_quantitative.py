@@ -175,9 +175,20 @@ def test_both_packages_take_the_tag_literally(tmp_path, capsys):
 def test_the_real_split_gives_the_jax_package_s_numbers(checkpoints, tmp_path, capsys,
                                                         monkeypatch):
     """`load_split(..., "test_hardway")` + the hard-way loader over the
-    on-disk synthetic dataset (the JAX package decoding through PIL and
-    numpy, as the port does); 5 samples in a batch of 8."""
+    on-disk synthetic dataset (both packages decoding through PIL and
+    numpy); 5 samples in a batch of 8."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
+    _real_split_both(checkpoints, tmp_path, capsys)
+
+
+def test_the_real_split_with_native_decode_gives_the_jax_package_s_numbers(
+        checkpoints, tmp_path, capsys):
+    """The same with native decode on in both packages."""
+    _real_split_both(checkpoints, tmp_path, capsys)
+
+
+def _real_split_both(checkpoints, tmp_path, capsys):
     root, _, _ = checkpoints
     data = tmp_path / "data"
     ids = write_synthetic_dataset(data, n_videos=5, frames=2, samplerate=8000, seconds=1,

@@ -1,8 +1,11 @@
-"""The port's serving tools against the JAX package's: `tools/loadtest.py`
-(the same request bytes; a sweep against a live port server that serves an
-int8 artifact on the CPU), `cli/profile.py` in its three modes on the CPU,
-and `utils/debug.py` (`shape_report` against the JAX package's report,
-`trace`, `StepTimer`)."""
+"""The port's tools against the JAX package's: `tools/loadtest.py` (the
+same request bytes; a sweep against a live port server that serves an int8
+artifact on the CPU), `cli/profile.py` in its three modes on the CPU,
+`utils/debug.py` (`shape_report` against the JAX package's report, `trace`,
+`StepTimer`), `data/sampler.py` against the JAX package's sampler, the
+offline dataset tools (`tools/validate`, `create_training_set`,
+`convert_to_jpg`, `convert_jpg_to_mp4`, `download_flickr`: offline only)
+and `cli/doctor` with `--device cpu`."""
 
 import json
 import threading
@@ -114,3 +117,146 @@ def test_step_timer_and_trace_on_the_cpu(tmp_path):
     assert all(dt >= 0.009 for dt in timer.history)
     assert timer.mean(last=2) == pytest.approx(np.mean(timer.history[-2:]))
     assert list(tmp_path.glob("*.pt.trace.json"))
+
+
+# ------------------------------------------------ sampler and dataset tools
+
+@pytest.mark.parametrize("length", [2, 5, 17, 100, 256, 257, 300, 1000])
+@pytest.mark.parametrize("num,stride", [(16, 16), (16, 1), (8, 4), (4, 2), (2, 30)])
+def test_the_sampler_is_the_jax_package_s(length, num, stride):
+    from avtubes.data.sampler import sample_frame_indices as jax_sample
+    from avtubes_torch.data.sampler import sample_frame_indices
+
+    for wrap in (True, False):
+        got = sample_frame_indices(length, num, stride, wrap=wrap)
+        assert got == jax_sample(length, num, stride, wrap=wrap)
+        assert len(got) == num
+        if wrap:
+            assert all(0 <= i < length for i in got)
+
+
+def _write_mp4(path, frames=8, size=32):
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10, (size, size))
+    rng = np.random.RandomState(0)
+    for _ in range(frames):
+        writer.write(rng.randint(0, 255, (size, size, 3), dtype=np.uint8))
+    writer.release()
+
+
+def test_good_video_and_audio(tmp_path):
+    from avtubes_torch.data.audio import write_wav
+    from avtubes_torch.tools.validate import good_audio, good_video
+
+    _write_mp4(tmp_path / "v.mp4")
+    assert good_video(tmp_path / "v.mp4")
+    (tmp_path / "bad.mp4").write_bytes(b"not a video")
+    assert not good_video(tmp_path / "bad.mp4")
+    write_wav(tmp_path / "a.wav", np.zeros(22050 * 2), 22050)
+    assert good_audio(tmp_path / "a.wav")
+    write_wav(tmp_path / "s.wav", np.zeros(100), 22050)
+    assert not good_audio(tmp_path / "s.wav")
+
+
+def test_prune_corrupt_pairs(tmp_path):
+    from avtubes.tools.validate import prune_corrupt_pairs as jax_prune
+    from avtubes_torch.data.audio import write_wav
+    from avtubes_torch.tools.validate import prune_corrupt_pairs
+
+    (tmp_path / "videos").mkdir()
+    (tmp_path / "audio").mkdir()
+    _write_mp4(tmp_path / "videos" / "good1.mp4")
+    write_wav(tmp_path / "audio" / "good1.wav", np.zeros(44100), 22050)
+    _write_mp4(tmp_path / "videos" / "noaudio.mp4")
+    (tmp_path / "videos" / "corrupt.mp4").write_bytes(b"xx")
+    write_wav(tmp_path / "audio" / "corrupt.wav", np.zeros(44100), 22050)
+    bad = prune_corrupt_pairs(tmp_path, dry_run=True)
+    assert sorted(bad) == ["corrupt", "noaudio"] == sorted(jax_prune(tmp_path, dry_run=True))
+    assert (tmp_path / "videos" / "corrupt.mp4").exists()    # a dry run keeps files
+    prune_corrupt_pairs(tmp_path, dry_run=False)
+    assert not (tmp_path / "videos" / "corrupt.mp4").exists()
+    assert (tmp_path / "videos" / "good1.mp4").exists()
+
+
+def test_match_urls_to_ids_offline():
+    from avtubes.tools.download_flickr import match_urls_to_ids as jax_match
+    from avtubes_torch.tools.download_flickr import match_urls_to_ids
+
+    urls = ["http://x.com/vid/12345_hd.mp4", "http://x.com/vid/99999.mp4"]
+    ids = ["12345", "55555", "999"]
+    assert match_urls_to_ids(urls, ids) == jax_match(urls, ids) == {
+        "12345": "http://x.com/vid/12345_hd.mp4", "999": "http://x.com/vid/99999.mp4"}
+
+
+def test_training_subsets_are_the_jax_package_s(tmp_path, capsys):
+    from avtubes.tools.create_training_set import sample_subsets as jax_subsets
+    from avtubes_torch.data.audio import write_wav
+    from avtubes_torch.tools.create_training_set import eligible_ids, main, sample_subsets
+
+    for d in ("videos", "audio", "md"):
+        (tmp_path / d).mkdir()
+    for i in range(20):
+        (tmp_path / "videos" / f"{i}.mp4").write_bytes(b"x")
+        write_wav(tmp_path / "audio" / f"{i}.wav", np.zeros(100), 100)
+    (tmp_path / "md" / "flickr_test.csv").write_text("3,0\n4,0\n")
+    pool = eligible_ids(tmp_path, exclude={"3", "4"})
+    assert "3" not in pool and len(pool) == 18
+    assert sample_subsets(pool, [1], seed=7) == jax_subsets(pool, [1], seed=7)
+    main(["--root", str(tmp_path), "--metadata_dir", str(tmp_path / "md"), "--sizes", "1"])
+    assert "eligible pool: 18 ids (2 excluded)" in capsys.readouterr().out
+    rows = (tmp_path / "md" / "flickr_train1k.csv").read_text().splitlines()
+    assert len(rows) == 18 and all(r.endswith(",0") for r in rows)
+
+
+def test_convert_jpg_mp4_round_trip(tmp_path):
+    pytest.importorskip("cv2")
+    from PIL import Image
+
+    from avtubes_torch.tools.convert_jpg_to_mp4 import frames_to_mp4
+    from avtubes_torch.tools.convert_to_jpg import extract_clip
+    from avtubes_torch.tools.validate import good_video
+
+    fdir = tmp_path / "frames"
+    fdir.mkdir()
+    rng = np.random.RandomState(1)
+    for i in range(6):
+        Image.fromarray(rng.randint(0, 255, (32, 32, 3), dtype=np.uint8)).save(fdir / f"{i}.jpg")
+    mp4 = tmp_path / "out.mp4"
+    assert frames_to_mp4(fdir, mp4, fps=5) == 6
+    assert good_video(mp4)
+    out = tmp_path / "extracted"
+    assert extract_clip(mp4, out, frames=4, stride=2)
+    assert sorted(p.name for p in out.glob("*.jpg")) == ["0.jpg", "1.jpg", "2.jpg", "3.jpg"]
+    with pytest.raises(ValueError, match="no JPEGs"):
+        frames_to_mp4(tmp_path / "extracted_none", tmp_path / "x.mp4")
+
+
+# ------------------------------------------------------------------ doctor
+
+def test_doctor_on_the_cpu_passes_a_synthetic_tree(tmp_path, capsys):
+    from avtubes_torch.cli.doctor import main
+    from avtubes_torch.data.synthetic import write_synthetic_dataset
+
+    write_synthetic_dataset(tmp_path, n_videos=2)
+    rc = main(["--data_path", str(tmp_path), "--og_data_path", str(tmp_path),
+               "--metadata_dir", str(tmp_path / "metadata"), "--device", "cpu",
+               "--spot", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "doctor: OK" in out
+    assert out.count("[PASS]") >= 4
+    assert "[PASS] device     --device cpu" in out
+    assert "2/2 clips spot-decoded" in out and "2/2 frames spot-decoded" in out
+
+
+def test_doctor_fails_on_a_missing_tree_and_without_a_card(tmp_path, capsys):
+    from avtubes_torch.cli.doctor import main
+
+    (tmp_path / "videos").mkdir()
+    rc = main(["--data_path", str(tmp_path), "--skip_device"])
+    out = capsys.readouterr().out
+    assert rc == 1 and "doctor: FAIL" in out and "[WARN] device     skipped" in out
+    if torch.cuda.is_available():
+        return
+    rc = main(["--og_data_path", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 1 and "[FAIL] device     no CUDA card visible" in out

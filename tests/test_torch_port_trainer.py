@@ -37,9 +37,10 @@ def _records(path: Path) -> list[dict]:
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """The JAX package's PIL and numpy decode paths (the port has no native
-    decoder)."""
+    """Both packages' PIL and numpy decode paths (each native decoder
+    switched off)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
 
 
 # ---------------------------------------------------------------- the CLI
@@ -211,6 +212,24 @@ def test_on_disk_sources_equal_the_jax_package_s(tmp_path, pil_only):
     bad = tpipe.ClipTrainSource(tmp_path, ["missing"], DataConfig(**kwargs))
     with pytest.raises(tpipe.SkippedSampleError, match="missing"):
         bad.load(0, np.random.RandomState(0))
+
+
+def test_hard_way_loader_with_native_decode_equals_the_jax_package_s(tmp_path):
+    """Native decode on in both packages: the per-sample loader of the
+    waveform transport and the batched one of the spectrogram transport."""
+    ids = write_synthetic_dataset(tmp_path, n_videos=5, frames=2, samplerate=8000, seconds=1,
+                                  image_hw=(70, 90))
+    for transport in ("int16", "spec_int16"):
+        kwargs = dict(image_size=64, frame_density=2, samplerate=8000, audio_seconds=1,
+                      audio_transport=transport)
+        got = list(tpipe.make_hardway_loader(tmp_path, ids, DataConfig(**kwargs), 2,
+                                             num_workers=3).epoch(0))
+        want = list(jpipe.make_hardway_loader(tmp_path, ids, JaxDataConfig(**kwargs), 2,
+                                              num_workers=1).epoch(0))
+        assert [b["id"] for b in got] == [b["id"] for b in want] == [ids[:2], ids[2:4], ids[4:]]
+        for a, b in zip(got, want):
+            for k in ("frame", "waveform"):
+                np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_hard_way_loader_equals_the_jax_package_s_per_sample_loader(tmp_path, pil_only):

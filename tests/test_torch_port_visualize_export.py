@@ -139,8 +139,19 @@ def test_the_overlays_are_written_under_the_jax_package_s_names(same_weights, ch
 
 def test_the_whole_video_overlays_are_the_jax_package_s(same_weights, checkpoints,
                                                          monkeypatch, capsys):
-    monkeypatch.setattr(native, "available", lambda: False)
-    data = checkpoints / "data"
+    monkeypatch.setattr(native, "available", lambda: False)   # both packages' numpy WAV path
+    monkeypatch.setenv("AVTUBES_TORCH_NO_NATIVE", "1")
+    _whole_video_both(checkpoints, capsys, "python")
+
+
+def test_the_whole_video_overlays_with_native_decode_are_the_jax_package_s(
+        same_weights, checkpoints, capsys):
+    """The same with native decode on in both packages (the WAVs in C++)."""
+    _whole_video_both(checkpoints, capsys, "native")
+
+
+def _whole_video_both(checkpoints, capsys, tag: str):
+    data = checkpoints / f"data_{tag}"
     ids = write_synthetic_dataset(data, n_videos=2, frames=5, samplerate=8000, seconds=1,
                                   image_hw=(72, 80), mp4=True)
     flags = ["--data_path", str(data), "--metadata_dir", str(data / "metadata"),
@@ -148,14 +159,14 @@ def test_the_whole_video_overlays_are_the_jax_package_s(same_weights, checkpoint
     for pkg, argv in ((jax_visualize, []), (visualize, ["--device", "cpu"])):
         name = "jax" if pkg is jax_visualize else "port"
         pkg.main([*GEOMETRY, *flags, *argv, "--summaries_dir", str(checkpoints / name),
-                  "--out_dir", str(checkpoints / f"video_{name}")])
+                  "--out_dir", str(checkpoints / f"video_{name}_{tag}")])
         assert "wrote per-frame overlays for 2 videos" in capsys.readouterr().out
 
     def files(root):
         return sorted(str(p.relative_to(root)) for p in root.rglob("*.jpg"))
 
-    got = files(checkpoints / "video_port")
-    assert got == files(checkpoints / "video_jax")
+    got = files(checkpoints / f"video_port_{tag}")
+    assert got == files(checkpoints / f"video_jax_{tag}")
     # frames 1, 2, 3 of each 5-frame video (the last is not scored)
     assert got == [f"{v}/{j}.jpg" for v in ids for j in range(3)]
 
