@@ -29,7 +29,11 @@ disk).  The checkpoint is read, and the validation runs, on `--device`
 (default: the card, or an error).
 
 `--s2d` (space-to-depth stems) raises: an MXU layout trick that is not to
-be ported (ROADMAP.md, "Not to port").
+be ported (ROADMAP.md, "Not to port").  So do the StableHLO export's
+`--batch` (the exported batch; the port's artifact takes any batch) and
+`--platforms` (the lowering targets), before argparse could read `--batch`
+as an abbreviation of `--batch_size`.  `--remat` is accepted, as by the JAX
+CLI, and changes nothing at inference.
 """
 
 import json
@@ -48,6 +52,14 @@ from avtubes_torch.train.hardway import HARDWAY_TAG, build_model
 
 S2D_NOT_PORTED = ("--s2d is not ported to avtubes_torch: space-to-depth stems are "
                   "an MXU layout trick (ROADMAP.md, \"Not to port\")")
+#: the JAX CLI's flags of its StableHLO export, which the port's artifact
+#: (a state_dict that takes any batch, on the card) has no use for
+STABLEHLO_NOT_PORTED = {
+    "--batch": "the exported batch of a StableHLO artifact; the port's artifact takes "
+               "any batch",
+    "--platforms": "the StableHLO lowering's target platforms; the port's artifact runs "
+                   "on the card (or the CPU if asked)",
+}
 
 
 def main(argv=None):
@@ -67,6 +79,12 @@ def main(argv=None):
         raise SystemExit(f"--quant supports only 'int8', got {quant!r}")
     if "--s2d" in argv:
         raise NotImplementedError(S2D_NOT_PORTED)
+    for flag, meaning in STABLEHLO_NOT_PORTED.items():
+        # by name, before argparse would take `--batch` for `--batch_size`
+        if any(a == flag or a.startswith(flag + "=") for a in argv):
+            raise NotImplementedError(
+                f"{flag} is not ported to avtubes_torch: {meaning} (ROADMAP.md, "
+                "\"Not to port\")")
     audio_transport = take("--audio_transport", "float32")
     validate_tol = float(take("--validate_tol", "0.01"))
     validate_n = 0

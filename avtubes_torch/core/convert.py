@@ -20,7 +20,11 @@ passes on the port's `AVENet` / `FullModel` / `ResNet2D` / `ResNet3D`
 (which own one stem each and no classifier head).
 
 `FlowNetLite` keeps the flax names, so `flownet_from_flax` only joins the
-path with dots, transposes the kernels and carries `corr_temp`.
+path with dots, transposes the kernels and carries `corr_temp`.  So do the
+zoo's models (`models/zoo.py`), whose bridge `zoo_from_flax` also turns
+Dense kernels (in, out) into Linear weights (out, in), BatchNorms into
+their four buffers, and hands `AudioResNetVLAD`'s `backbone` to the ResNet
+rename above.
 """
 
 from __future__ import annotations
@@ -165,4 +169,42 @@ def flownet_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
                 raise ValueError(f"unknown FlowNetLite entry {prefix}{name}")
 
     walk(params, "")
+    return out
+
+
+def zoo_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`{'params', 'batch_stats'}` of any model of the JAX package's
+    `models/zoo.py` (`NetVLAD`, `AudioResNetVLAD`, `SyncNetAudio`,
+    `SyncNetVisual`, `AudioConvNet`, `ImageConvNet`,
+    `TransformerAttention`), as nested dicts of numpy arrays -> state_dict
+    for its counterpart in `avtubes_torch.models.zoo` (loads with
+    ``strict=True``): conv kernels HWIO -> OIHW, Dense kernels (in, out) ->
+    (out, in), biases and `centroids` as they are, BatchNorm
+    scale/bias/mean/var -> weight/bias/running_mean/running_var."""
+    out: dict[str, torch.Tensor] = {}
+
+    def array(val) -> torch.Tensor:
+        return torch.from_numpy(np.array(val, np.float32))
+
+    def walk(params: Mapping, stats: Mapping, prefix: str) -> None:
+        for name, node in sorted(params.items()):
+            if not isinstance(node, Mapping):
+                if name != "centroids":
+                    raise ValueError(f"unknown zoo entry {prefix}{name}")
+                out[f"{prefix}centroids"] = array(node)
+            elif name == "backbone":
+                out.update(resnet2d_from_flax(node, stats.get(name, {}),
+                                              f"{prefix}backbone."))
+            elif "scale" in node:
+                _bn_out(node, stats.get(name, {}), f"{prefix}{name}", out)
+            elif "kernel" in node:
+                k = np.asarray(node["kernel"], np.float32)
+                k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                out[f"{prefix}{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+                if "bias" in node:
+                    out[f"{prefix}{name}.bias"] = array(node["bias"])
+            else:
+                walk(node, stats.get(name, {}), f"{prefix}{name}.")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
     return out

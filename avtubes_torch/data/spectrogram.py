@@ -18,11 +18,21 @@ transports and hands waveforms to `avtubes_torch.ops.stft` — the
 hand-written CUDA kernel for a tensor on the card, its plain PyTorch
 version for a tensor on the CPU.  The real DFT stays in IEEE float32 on
 both: TF32 or bf16 inputs cost about 1e-2 absolute in the log-spectrogram.
+
+The log-mel front end (`mel_filterbank`, `log_mel_spectrogram`) is opt-in
+and on no main path: the linear PSD power (`_power_spectrum`, which the
+plain log-spectrogram shares) times an HTK-scale, Slaney-normalized
+filterbank, then the same log and scale.  In the JAX package it is an XLA
+matmul at HIGHEST precision, not a Pallas kernel, so here it is a library
+matmul in IEEE float32 (the caller keeps TF32 off, as for the plain
+log-spectrogram).  K1 emits the log of the
+power, not the power, so it does not serve this function.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -247,6 +257,75 @@ def frame_signal(x: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
     because XLA has no strided views; the CUDA kernel does not call this at
     all — it computes each frame's offset itself.)"""
     return x.unfold(-1, cfg.nperseg, cfg.hop)[..., : cfg.num_frames, :]
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_constants(cfg: SpectrogramConfig, device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 (cos, sin, PSD scale) of `cfg` on `device`; read-only, shared."""
+    cosm, sinm = _dft_matrices(cfg)
+    mk = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+    return mk(cosm), mk(sinm), mk(_onesided_scale(cfg))
+
+
+def _power_spectrum(x: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
+    """(..., num_samples) waveform -> one-sided PSD power (..., T, F) float32.
+
+    Framing (a strided view), constant detrend, two float32 products against
+    the window-folded cos/sin matrices, PSD density scale: scipy's S before
+    the log.  The products are IEEE float32 only while TF32 is off for
+    matmuls (PyTorch's default, and every CLI's)."""
+    x = as_float_waveform(x)
+    cosm, sinm, scale = _dft_constants(cfg, x.device)
+    frames = frame_signal(x, cfg)                          # (..., T, nperseg)
+    frames = frames - frames.mean(dim=-1, keepdim=True)    # constant detrend
+    re = frames @ cosm                                     # (..., T, F)
+    im = frames @ sinm
+    return (re * re + im * im) * scale
+
+
+def mel_filterbank(cfg: SpectrogramConfig, n_mels: int,
+                   fmin: float = 0.0, fmax: float | None = None) -> np.ndarray:
+    """(num_freqs, n_mels) float64 triangular mel filterbank: HTK mel scale
+    (2595 log10(1 + f/700)), area-normalized (Slaney) triangles.  The JAX
+    package's numpy function, copied."""
+    fmax = fmax if fmax is not None else cfg.samplerate / 2.0
+
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+
+    mel_pts = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts)
+    freqs = np.linspace(0, cfg.samplerate / 2.0, cfg.num_freqs)
+    fb = np.zeros((cfg.num_freqs, n_mels))
+    for m in range(n_mels):
+        lo, ctr, hi = hz_pts[m], hz_pts[m + 1], hz_pts[m + 2]
+        up = (freqs - lo) / max(ctr - lo, 1e-12)
+        down = (hi - freqs) / max(hi - ctr, 1e-12)
+        fb[:, m] = np.maximum(0.0, np.minimum(up, down))
+        fb[:, m] *= 2.0 / max(hi - lo, 1e-12)  # Slaney area norm
+    return fb
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_constants(cfg: SpectrogramConfig, n_mels: int, device: torch.device) -> torch.Tensor:
+    """`mel_filterbank(cfg, n_mels)` as float32 on `device`; read-only, shared."""
+    return torch.tensor(mel_filterbank(cfg, n_mels), dtype=torch.float32, device=device)
+
+
+def log_mel_spectrogram(x: torch.Tensor, cfg: SpectrogramConfig = SpectrogramConfig(),
+                        n_mels: int = 128) -> torch.Tensor:
+    """Batched log-mel spectrogram: (..., num_samples) -> (..., n_mels, T)
+    float32: the linear PSD power, `power @ mel_filterbank`, log(. + 1e-7) / 12.
+    On the card the products are IEEE float32 only while
+    `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default;
+    `core/device.py::disable_tf32` in every CLI)."""
+    mel = _power_spectrum(x, cfg) @ _mel_constants(cfg, n_mels, x.device)
+    spec = torch.log(mel + cfg.log_offset) / cfg.normalize_std
+    return spec.transpose(-1, -2).contiguous()             # (..., M, T)
 
 
 def log_spectrogram(x: torch.Tensor,

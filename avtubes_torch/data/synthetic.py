@@ -10,6 +10,9 @@ metadata CSVs/XMLs) with deterministic random content:
 
 `mp4=True` also writes `root/videos/<id>.mp4` (OpenCV, `mp4v` at 10 fps)
 for the per-frame whole-video test (`data/pipeline.py::PerFrameEvalSource`).
+`write_synthetic_vggss` is the port's copy of the JAX package's VGGSS
+fixture (frames, clips, WAVs, `vggss.json` with normalized boxes and the
+two CSVs): the same seed writes the same files.
 `photo=True` makes each clip's base image photo-like (smooth gradients plus
 mild noise) instead of uniform noise, which no camera produces and which
 JPEG decoders take unrealistically long over: the host decode rates of
@@ -98,4 +101,49 @@ def write_synthetic_dataset(root: str | Path, n_videos: int = 4, frames: int = 1
         (root / "metadata" / name).write_text(train_rows)
     (root / "metadata" / "flickr_test_hardway.csv").write_text(
         "\n".join(f"{v},{frames}" for v in ids) + "\n")
+    return ids
+
+
+def write_synthetic_vggss(root: str | Path, n_clips: int = 4, frames: int = 16,
+                          samplerate: int = 22050, seconds: int = 2,
+                          image_hw: tuple[int, int] = (256, 320),
+                          seed: int = 0) -> list[str]:
+    """VGGSS-layout fixture; returns the clip ids.
+
+      root/frames/<id>.jpg          root/videos/<id>/{0..T-1}.jpg
+      root/audio/<id>.wav
+      root/metadata/{vggss_test.csv, vggss_train.csv, vggss.json}
+
+    The GT is one centred box a clip in normalized coordinates (the
+    `vggss.json` convention).  The draws are the JAX package's, in its
+    order, so the same arguments write the same files."""
+    import json
+
+    from PIL import Image
+
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    ids = [f"synthvggss_{i:06d}" for i in range(n_clips)]
+    (root / "metadata").mkdir(parents=True, exist_ok=True)
+    (root / "frames").mkdir(exist_ok=True)
+    (root / "audio").mkdir(exist_ok=True)
+    h, w = image_hw
+    entries = []
+    for vid in ids:
+        base = rng.randint(0, 200, (h, w, 3)).astype(np.uint8)
+        Image.fromarray(base).save(root / "frames" / f"{vid}.jpg", quality=90)
+        vdir = root / "videos" / vid
+        vdir.mkdir(parents=True, exist_ok=True)
+        for i in range(frames):
+            img = np.clip(base.astype(np.int32) + rng.randint(-20, 20), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(vdir / f"{i}.jpg", quality=90)
+        t = np.arange(samplerate * seconds) / samplerate
+        wav = 0.4 * np.sin(2 * np.pi * rng.uniform(100, 1000) * t)
+        write_wav(root / "audio" / f"{vid}.wav", np.clip(wav, -1, 1), samplerate)
+        entries.append({"file": vid, "class": "synthetic",
+                        "bbox": [[0.25, 0.25, 0.75, 0.75]]})
+    (root / "metadata" / "vggss_test.csv").write_text("\n".join(ids) + "\n")
+    (root / "metadata" / "vggss_train.csv").write_text(
+        "\n".join(f"{v},0" for v in ids) + "\n")
+    (root / "metadata" / "vggss.json").write_text(json.dumps(entries))
     return ids

@@ -20,6 +20,11 @@ parameters and running statistics are float32 in both.
 `quant_int8` (serving only) makes every convolution of both backbones an
 int8 `QuantConv2d` (`models/resnet2d.py`); the parameters are the plain
 model's, so a plain checkpoint loads unchanged, and the head stays float32.
+
+`remat` (`--remat`, training only) makes each backbone call one checkpoint
+segment (`models/remat.py`), as `nn.remat` does in the JAX package: the
+same parameters, `state_dict` and running statistics, a second forward of
+each backbone in the backward pass instead of its stored activations.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_head
+from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 
 
@@ -35,11 +41,12 @@ class AVENet(nn.Module):
     def __init__(self, hardway: HardwayConfig = HardwayConfig(),
                  generator: torch.Generator | None = None,
                  compute_dtype: str | torch.dtype = torch.float32,
-                 quant_int8: bool = False):
+                 quant_int8: bool = False, remat: bool = False):
         super().__init__()
         self.hardway = hardway
         self.compute_dtype = compute_dtype_of(compute_dtype)
         self.quant_int8 = quant_int8
+        self.remat = remat
         self.imgnet = ResNet2D(modal="vision", generator=generator,
                                compute_dtype=self.compute_dtype, quant_int8=quant_int8)
         self.audnet = ResNet2D(modal="audio", generator=generator,
@@ -47,11 +54,11 @@ class AVENet(nn.Module):
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/16, W/16, 512) spatial features."""
-        return self.imgnet(image)
+        return call_backbone(self.imgnet, image, self.remat)
 
     def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
         """(B, F, T, 1) -> (B, 512) via global max pool."""
-        return self.audnet(audio).amax(dim=(1, 2))
+        return call_backbone(self.audnet, audio, self.remat).amax(dim=(1, 2))
 
     def forward(self, image: torch.Tensor, audio: torch.Tensor,
                 aud_all: torch.Tensor | None = None,

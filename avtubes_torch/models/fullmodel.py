@@ -15,6 +15,7 @@ it once and tiles the pooled features over T: the same function, T times
 less audio work.  The backbones compute in `compute_dtype` (see
 `models/resnet2d.py`); the head runs in float32 whatever it is.  The audio
 net keeps torch's constant-1 BatchNorm scale (`bn_scale_noise=False`).
+`remat` checkpoints each backbone call in training (`models/remat.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_head
+from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 from avtubes_torch.models.resnet3d import ResNet3D
 
@@ -30,21 +32,22 @@ from avtubes_torch.models.resnet3d import ResNet3D
 class FullModel(nn.Module):
     def __init__(self, hardway: HardwayConfig = HardwayConfig(),
                  generator: torch.Generator | None = None,
-                 compute_dtype: str | torch.dtype = torch.float32):
+                 compute_dtype: str | torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.hardway = hardway
         self.compute_dtype = compute_dtype_of(compute_dtype)
+        self.remat = remat
         self.vidnet = ResNet3D(generator=generator, compute_dtype=self.compute_dtype)
         self.audnet = ResNet2D(modal="audio", bn_scale_noise=False, generator=generator,
                                compute_dtype=self.compute_dtype)
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> (B, T, H/16, W/16, 512)."""
-        return self.vidnet(video)
+        return call_backbone(self.vidnet, video, self.remat)
 
     def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
         """(N, F, T, 1) -> (N, 512) via global max pool."""
-        return self.audnet(audio).amax(dim=(1, 2))
+        return call_backbone(self.audnet, audio, self.remat).amax(dim=(1, 2))
 
     def _frames(self, video: torch.Tensor) -> tuple[torch.Tensor, int]:
         vid = self.encode_video(video)

@@ -81,11 +81,13 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 class Conv2d(nn.Conv2d):
-    """`nn.Conv2d` that runs in its input's dtype: the (float32) weight is
-    cast per call, so the parameter and its gradient stay float32."""
+    """`nn.Conv2d` that runs in its input's dtype: the (float32) weight and
+    bias, if any, are cast per call, so the parameters and their gradients
+    stay float32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class QuantConv2d(Conv2d):

@@ -45,8 +45,9 @@ import torch
 
 from avtubes_torch.data.spectrogram import (
     SpectrogramConfig,
-    _dft_matrices,
+    _dft_constants,
     _onesided_scale,
+    _power_spectrum,
     as_float_waveform,
     frame_signal,
     tukey_periodic,
@@ -147,15 +148,6 @@ def fft_kernel_table(cfg: SpectrogramConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _constants(cfg: SpectrogramConfig, device: torch.device
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """float32 (cos, sin, scale) of `cfg` on `device`; read-only, shared."""
-    cosm, sinm = _dft_matrices(cfg)
-    mk = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
-    return mk(cosm), mk(sinm), mk(_onesided_scale(cfg))
-
-
-@functools.lru_cache(maxsize=16)
 def _fft_constants(cfg: SpectrogramConfig, device: torch.device
                    ) -> dict[str, torch.Tensor]:
     """`fft_tables(cfg)` as tensors on `device`; read-only, shared."""
@@ -174,20 +166,16 @@ def log_spectrogram_plain(x: torch.Tensor,
                           ) -> torch.Tensor:
     """Plain PyTorch version: (..., num_samples) -> (..., F, T) float32.
 
-    The function as tensor operations: strided framing view, constant
+    The function as tensor operations: the linear PSD power of
+    `data/spectrogram.py::_power_spectrum` (strided framing view, constant
     detrend, two float32 products against the window-folded cos/sin
-    matrices, PSD scale, log, normalise, transpose.  On the card the
-    products are IEEE float32 only while
-    `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).  The CPU tests use it and the kernels
-    are held against it on the card; it is no yardstick of speed.
+    matrices, PSD scale; the log-mel front end shares it), log, normalise,
+    transpose.  On the card the products are IEEE float32 only while
+    `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).
+    The CPU tests use it and the kernels are held against it on the card;
+    it is no yardstick of speed.
     """
-    x = as_float_waveform(x)
-    cosm, sinm, scale = _constants(cfg, x.device)
-    frames = frame_signal(x, cfg)                          # (..., T, nperseg)
-    frames = frames - frames.mean(dim=-1, keepdim=True)    # constant detrend
-    re = frames @ cosm                                     # (..., T, F)
-    im = frames @ sinm
-    power = (re * re + im * im) * scale
+    power = _power_spectrum(x, cfg)                        # (..., T, F)
     spec = torch.log(power + cfg.log_offset) / cfg.normalize_std
     return spec.transpose(-1, -2).contiguous()             # (..., F, T)
 
@@ -339,7 +327,7 @@ def log_spectrogram_cuda(x: torch.Tensor,
                  cfg.nperseg, cfg.hop, t, frames_per_block or FFT_TILE[cfg.nperseg],
                  cfg.log_offset, cfg.normalize_std, x.device.index, stream)
     else:
-        cosm, sinm, scale = _constants(cfg, x.device)
+        cosm, sinm, scale = _dft_constants(cfg, x.device)
         err = fn(x.data_ptr(), is_int16, cosm.data_ptr(), sinm.data_ptr(),
                  scale.data_ptr(), out.data_ptr(), b, n, cfg.nperseg, cfg.hop,
                  t, f, cfg.log_offset, cfg.normalize_std, x.device.index, stream)

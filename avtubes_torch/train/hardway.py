@@ -21,9 +21,12 @@ samples of each test under `<summaries_dir>/images/`.
 parts that the 1-frame and 3D tube trainers (`train/hardway_1frame.py`,
 `train/train3d.py`) share with this one.
 
+`--remat` checkpoints each backbone call (`models/remat.py`): the same
+step, with each backbone's forward run again in the backward pass.
+
 Single process, one device.  What the JAX package has and this port does
-not yet, and which raises rather than run something else: `--remat`,
-`--group_steps > 1` and more than one process.
+not, and which raises rather than run something else: `--group_steps > 1`
+(not to port) and more than one process (not yet).
 """
 
 from __future__ import annotations
@@ -78,10 +81,6 @@ def check_supported(cfg: ExperimentConfig) -> None:
     if cfg.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"--compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
                          f"got {cfg.train.compute_dtype!r}")
-    if cfg.train.remat:
-        raise NotImplementedError(
-            "--remat is not ported to avtubes_torch (ROADMAP.md Queue 1 item 12: "
-            "torch.utils.checkpoint re-runs BatchNorm in training mode)")
     if cfg.train.group_steps > 1:
         raise NotImplementedError(
             "--group_steps > 1 groups steps to amortize a TPU dispatch; it is in "
@@ -96,10 +95,11 @@ def check_supported(cfg: ExperimentConfig) -> None:
 
 def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None) -> AVENet:
     """AVENet of the configuration, its backbones in `--compute_dtype` (the
-    parameters float32 either way; see `check_supported`)."""
+    parameters float32 either way; see `check_supported`) and checkpointed
+    in training with `--remat`."""
     check_supported(cfg)
     return AVENet(hardway=cfg.hardway, generator=generator,
-                  compute_dtype=cfg.train.compute_dtype)
+                  compute_dtype=cfg.train.compute_dtype, remat=cfg.train.remat)
 
 
 def build_sources(cfg: ExperimentConfig):

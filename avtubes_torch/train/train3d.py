@@ -63,10 +63,11 @@ def check_supported_3d(cfg: ExperimentConfig) -> None:
 
 
 def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None) -> FullModel:
-    """FullModel of the configuration, its backbones in `--compute_dtype`."""
+    """FullModel of the configuration, its backbones in `--compute_dtype`
+    and checkpointed in training with `--remat`."""
     check_supported_3d(cfg)
     return FullModel(hardway=cfg.hardway, generator=generator,
-                     compute_dtype=cfg.train.compute_dtype)
+                     compute_dtype=cfg.train.compute_dtype, remat=cfg.train.remat)
 
 
 def perframe_test_setup(cfg: ExperimentConfig):

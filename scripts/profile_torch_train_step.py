@@ -6,7 +6,7 @@
                                                 [--image_size 224] [--steps 2]
                                                 [--compute_dtype bfloat16]
                                                 [--layout channels_last|contiguous]
-                                                [--out DIR]
+                                                [--remat] [--out DIR]
 
 Makes one synthetic recipe batch on the card (uint8 clips of `--frames`
 frames, int16 waveforms of 10 s at 22.05 kHz), its random draws and a
@@ -28,7 +28,9 @@ times of the step's parts (spectrogram, augmentation, forward + loss,
 backward, optimizer) and the peak device memory of a step.  `--layout
 contiguous` turns the backbones' activations and conv weights from
 channels-last (the port's only layout) to plain NCHW / NCDHW, to measure
-what the layout costs.  With `--out` it also writes the Chrome trace there.  Needs one CUDA card; exits non-zero
+what the layout costs.  `--remat` checkpoints each backbone call (the
+trainers' `--remat`): the backward pass runs each backbone's forward again.
+With `--out` it also writes the Chrome trace there.  Needs one CUDA card; exits non-zero
 without one.
 """
 
@@ -248,6 +250,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--compute_dtype", default="bfloat16", choices=("float32", "bfloat16"))
     p.add_argument("--layout", default="channels_last", choices=("channels_last", "contiguous"))
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--out", default=None, help="directory for the Chrome trace")
     a = p.parse_args(argv)
 
@@ -256,7 +259,8 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")                       # the card, or an error
     spec_cfg = SpectrogramConfig()
     net = FullModel if a.model == "tube3d" else AVENet
-    model = net(generator=torch.Generator().manual_seed(0), compute_dtype=a.compute_dtype)
+    model = net(generator=torch.Generator().manual_seed(0), compute_dtype=a.compute_dtype,
+                remat=a.remat)
     if a.layout == "contiguous":
         for backbone in model.children():
             backbone.memory_format = torch.contiguous_format
@@ -300,7 +304,8 @@ def main(argv=None) -> int:
         report["flow"] = "off" if a.no_flow else f"weight {a.flow_loss_weight}"
     print(json.dumps({"card": device_report(), "model": a.model, "batch": a.batch,
                       "frames": a.frames, "image_size": a.image_size,
-                      "compute_dtype": a.compute_dtype, "layout": a.layout, **report}))
+                      "compute_dtype": a.compute_dtype, "layout": a.layout, "remat": a.remat,
+                      **report}))
     return 0
 
 

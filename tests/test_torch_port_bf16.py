@@ -310,7 +310,9 @@ def test_the_trainer_s_default_command_runs_in_bf16(tmp_path, monkeypatch):
     for name, t in saved["params"].items():
         assert t.dtype == (torch.int64 if name.endswith("num_batches_tracked")
                            else torch.float32), name
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        hardway.run(ExperimentConfig.from_args(
-            ["--synthetic", "--device", "cpu", "--remat",
-             "--summaries_dir", str(tmp_path / "r")]), steps_cap=1)
+    # --remat on the default command: the same bf16 model, its backbones
+    # checkpointed (its steps are in test_torch_port_remat.py)
+    remat = real_build(ExperimentConfig.from_args(["--synthetic", "--device", "cpu",
+                                                   "--remat"]))
+    assert remat.remat and remat.compute_dtype == torch.bfloat16
+    assert remat.state_dict().keys() == model.state_dict().keys()

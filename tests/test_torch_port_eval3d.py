@@ -192,7 +192,7 @@ def test_the_trainer_runs_bf16_by_default(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--conv3d_impl", "stacked"], "Not to port"),
     (["--conv3d_impl", "sum"], "Not to port"),
-    (["--remat"], "Queue 1 item 12"),
+    (["--group_steps", "2"], "Not to port"),
     (["--compute_dtype", "float16"], "compute_dtype"),
 ])
 def test_unported_options_raise(tmp_path, extra, match):

@@ -149,12 +149,47 @@ def test_export_model_cli_and_validation_give_zero_deltas(tmp_path, js, capsys):
     assert r16["heatmap_max_abs_diff"] <= 1e-3 and r16["ciou_delta"] <= 0.25
 
 
-@pytest.mark.parametrize("flag", [["--s2d"]])
+@pytest.mark.parametrize("flag", [["--s2d"], ["--batch", "8"], ["--batch=8"],
+                                  ["--platforms", "cpu"], ["--platforms=cpu,cuda"]])
 def test_export_model_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Not to port"):
+    """The JAX CLI's `--s2d`, and its StableHLO export's `--batch` and
+    `--platforms`, are refused by name; `--batch` never reaches argparse,
+    which would take it for `--batch_size`."""
+    with pytest.raises(NotImplementedError, match="Not to port") as err:
         export_model.main(["--summaries_dir", str(tmp_path), "--out", str(tmp_path / "m.avt"),
                            "--device", "cpu", *SMALL, *flag])
+    assert flag[0].split("=")[0] in str(err.value)
     assert not (tmp_path / "m.avt").exists()
+
+
+def test_the_jax_cli_s_batch_flag_means_the_export_batch(monkeypatch):
+    """What `--batch` means to the JAX CLI (`avtubes/cli/export_model.py`):
+    the exported batch, taken out before its config parses; to the port's
+    argparse it would be `--batch_size`, which is why the port refuses it."""
+    seen = {}
+
+    def parse_and_stop(cls, argv):
+        seen["argv"] = argv
+        raise SystemExit(0)
+
+    monkeypatch.setattr(jax_export_cli.ExperimentConfig, "from_args",
+                        classmethod(parse_and_stop))
+    with pytest.raises(SystemExit):
+        jax_export_cli.main(["--batch", "8", "--platforms", "cpu", *SMALL])
+    assert seen["argv"] == SMALL
+    assert ExperimentConfig.from_args(["--batch", "8"]).optim.batch_size == 8
+
+
+def test_export_model_accepts_remat_and_writes_the_same_artifact(tmp_path):
+    """`--remat`, accepted as by the JAX CLI, changes nothing at inference:
+    the artifact is byte-equal to the one written without it."""
+    blobs = []
+    for extra in ([], ["--remat"]):
+        out = tmp_path / f"m{len(extra)}.avt"
+        export_model.main(["--summaries_dir", str(tmp_path / "none"), "--out", str(out),
+                           "--device", "cpu", *SMALL, *extra])
+        blobs.append(out.read_bytes())
+    assert blobs[0] == blobs[1]
 
 
 def test_export_model_refuses_any_quant_but_int8(tmp_path):

@@ -36,7 +36,8 @@ def test_expected_modules_exist():
                  "ops.int8_conv", "utils.debug", "cli.profile", "tools.loadtest",
                  "native", "cli.doctor", "data.sampler", "tools.validate",
                  "tools.create_training_set", "tools.convert_to_jpg",
-                 "tools.convert_jpg_to_mp4", "tools.download_flickr"):
+                 "tools.convert_jpg_to_mp4", "tools.download_flickr", "models.zoo",
+                 "models.remat"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]

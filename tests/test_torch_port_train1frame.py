@@ -242,8 +242,8 @@ def test_the_trainer_takes_the_middle_frame_whatever_frame_density(tmp_path, mon
 
 
 def test_unported_options_raise(tmp_path):
-    cfg = ExperimentConfig.from_args(["--device", "cpu", *SMALL, "--remat",
-                                      "--summaries_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    cfg = ExperimentConfig.from_args(["--device", "cpu", *SMALL, "--remat", "--group_steps",
+                                      "2", "--summaries_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="Not to port"):
         hardway_1frame.run(cfg, steps_cap=1)
     assert not list(tmp_path.iterdir())

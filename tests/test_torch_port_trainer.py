@@ -102,8 +102,8 @@ def test_watch_and_device_pool_options(tmp_path):
 # ---------------------------------------------------- what is not ported
 
 @pytest.mark.parametrize("extra,match", [
-    (["--remat"], "Queue 1 item 12"),     # the bfloat16 default runs; remat on it does not
-    (["--compute_dtype", "float32", "--remat"], "remat"),
+    (["--group_steps", "2"], "Not to port"),     # the bfloat16 default
+    (["--compute_dtype", "float32", "--remat", "--group_steps", "2"], "Not to port"),
     (["--compute_dtype", "float32", "--group_steps", "2"], "Not to port"),
 ])
 def test_unported_options_raise(tmp_path, extra, match):
