@@ -28,9 +28,11 @@ import sys
 
 from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import disable_tf32
+from avtubes_torch.core.distributed import require_single_process
 
 
 def main(argv=None):
+    require_single_process()
     argv = list(sys.argv[1:] if argv is None else argv)
     weight = 0.0
     if "--flow_loss_weight" in argv:

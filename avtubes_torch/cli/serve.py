@@ -7,7 +7,7 @@ coalesced into batched device calls by
 
     python -m avtubes_torch.cli.serve --model model.avt --port 8000 \
         [--device cuda] [--max_batch 8] [--batch_window_ms 5] [--no_warmup] \
-        [--fast_decode]
+        [--fast_decode] [--shard]
 
 `--device` defaults to `cuda`; on a machine without a card the server
 refuses to start rather than serve from the CPU (`--device cpu` asks for
@@ -23,6 +23,11 @@ turns cuDNN's autotuner on (`torch.backends.cudnn.benchmark`), which the
 warmup of every batch bucket feeds.  The autotuner's cache is per thread, so
 the warmup runs in the micro-batcher's dispatcher thread, the one that runs
 every batch; the port is bound only once it is over.
+
+`--shard` splits every batch over all the cards (`ShardedArtifactRunner`:
+one pipeline replica a card, buckets rounded up to multiples of the card
+count) and prints the device count, as the JAX CLI does; with `--device
+cpu` it is one CPU replica.
 
 `--fast_decode` decodes request JPEGs with the native core's DCT-scaled
 path (`eval_frame_from_bytes(fast=True)`: about two levels from the exact
@@ -239,19 +244,31 @@ def main(argv=None):
                         "fast path (~2x the image-decode rate; ~2-level "
                         "pixel drift vs the full-res decode). Non-JPEG "
                         "payloads fall back to the exact path")
+    p.add_argument("--shard", action="store_true",
+                   help="shard request batches over ALL the cards (one pipeline "
+                        "replica each; buckets round up to multiples of the "
+                        "card count)")
     a = p.parse_args(argv)
 
     import torch
 
-    from avtubes_torch.core.serving import ArtifactRunner, MicroBatcher
+    from avtubes_torch.core.device import resolve_device
+    from avtubes_torch.core.serving import ArtifactRunner, MicroBatcher, ShardedArtifactRunner
 
     # the buckets' shapes are fixed and the warmup runs each once, so cuDNN's
     # autotuner picks each convolution's algorithm before the first request
     # (a float32 batch of 8 on an H100: 10.5 -> 7.5 ms of device time; bf16
     # unchanged; PERF.md §7)
     torch.backends.cudnn.benchmark = True
-    runner = ArtifactRunner(Path(a.model).read_bytes(), max_batch=a.max_batch,
-                            device=a.device)
+    blob = Path(a.model).read_bytes()
+    if a.shard:
+        device = resolve_device(a.device)
+        devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        runner = ShardedArtifactRunner(blob, max_batch=a.max_batch, devices=devices)
+        print(f"sharding batches over {len(runner.devices)} devices", flush=True)
+    else:
+        runner = ArtifactRunner(blob, max_batch=a.max_batch, device=a.device)
     # the warmup runs in the dispatcher thread (cuDNN's autotuner cache is
     # per thread); the port is bound once it is over
     batcher = MicroBatcher(runner, window_ms=a.batch_window_ms, warmup=not a.no_warmup)

@@ -17,10 +17,12 @@ import sys
 
 from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import disable_tf32
+from avtubes_torch.core.distributed import require_single_process
 from avtubes_torch.train.train3d import run
 
 
 def main(argv=None):
+    require_single_process()
     cfg = ExperimentConfig.from_args(list(sys.argv[1:] if argv is None else argv))
     disable_tf32()
     metrics = run(cfg, steps_cap=cfg.train.steps_cap)

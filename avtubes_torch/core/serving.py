@@ -9,6 +9,9 @@ Counterpart of `avtubes/core/serving.py`.  Two pieces:
     stays O(log max_batch) and can be warmed before the first request.
     Inputs go through pinned staging buffers and asynchronous host-to-device
     copies; results come back as numpy.
+  * `ShardedArtifactRunner` — the same at buckets of multiples of n
+    devices: each batch is split into n equal shards, each run by its own
+    pipeline replica on its own device and stream, and gathered in order.
   * `MicroBatcher` — a dispatcher thread that coalesces concurrent
     single-sample requests into one device call: a batch of 8 costs the last
     arrival one batching window and saves 7 passes through the pipeline at
@@ -23,6 +26,7 @@ bounding box.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -35,6 +39,7 @@ from avtubes_torch.core.device import resolve_device
 __all__ = [
     "ArtifactRunner",
     "MicroBatcher",
+    "ShardedArtifactRunner",
     "mask_to_rle",
     "rle_to_mask",
     "mask_box",
@@ -200,20 +205,95 @@ class ArtifactRunner:
                      for i in range(0, n, self.max_batch)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
-        b = self._bucket(n)
         with self._lock:
-            f_host, w_host = self._stage(b)
-            f_host[:n].copy_(torch.from_numpy(np.ascontiguousarray(frames)))
-            w_host[:n].copy_(torch.from_numpy(np.ascontiguousarray(waves)))
-            if b != n:  # padding rows are all-zero clips
-                f_host[n:].zero_()
-                w_host[n:].zero_()
-            masks, heatmaps = self.pipeline(
-                f_host.to(self.device, non_blocking=True),
-                w_host.to(self.device, non_blocking=True))
-            # .cpu() waits for the stream, so the staging pair is free again
-            masks, heatmaps = masks[:n].cpu().numpy(), heatmaps[:n].cpu().numpy()
-        return masks, heatmaps
+            return self._execute(frames, waves, self._bucket(n))
+
+    def _execute(self, frames: np.ndarray, waves: np.ndarray, b: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """Run n <= b validated rows at bucket b (the lock held)."""
+        masks, heatmaps = self._launch(frames, waves, b)
+        # .cpu() waits for the stream, so the staging pair is free again
+        return masks.cpu().numpy(), heatmaps.cpu().numpy()
+
+    def _launch(self, frames: np.ndarray, waves: np.ndarray, b: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stage n <= b rows, zero-padded to b, and enqueue the pipeline on
+        the current stream; returns its first n rows on the device, not
+        waited for.  The staging pair stays in use until they are read."""
+        n = frames.shape[0]
+        f_host, w_host = self._stage(b)
+        f_host[:n].copy_(torch.from_numpy(np.ascontiguousarray(frames)))
+        w_host[:n].copy_(torch.from_numpy(np.ascontiguousarray(waves)))
+        if b != n:  # padding rows are all-zero clips
+            f_host[n:].zero_()
+            w_host[n:].zero_()
+        masks, heatmaps = self.pipeline(
+            f_host.to(self.device, non_blocking=True),
+            w_host.to(self.device, non_blocking=True))
+        return masks[:n], heatmaps[:n]
+
+
+class ShardedArtifactRunner(ArtifactRunner):
+    """Data-parallel artifact execution over several devices.
+
+    Counterpart of the JAX package's `ShardedArtifactRunner`.  The localizer
+    is per-sample independent, so serving scales by splitting the batch:
+    one pipeline replica per entry of `devices` (default: every card,
+    `cuda:0` ... `cuda:{n-1}`; a device may repeat, each replica then runs
+    on its own stream of it), each taking an equal shard of the request
+    batch, no collectives.  The batch buckets are rounded up to multiples
+    of n (the padding rows are the zero clips `ArtifactRunner.run` already
+    adds), so every shard is a bucket of its replica.  All shards are
+    enqueued before any result is read, then gathered in order.
+
+    The JAX package refuses a fixed-batch artifact whose batch n does not
+    divide; the port's artifact is a `state_dict` that takes any batch, so
+    there is nothing to refuse.  `warmup` runs every bucket twice through
+    every replica in the calling thread (cuDNN's autotuner cache is per
+    thread: `MicroBatcher` warms in its dispatcher thread)."""
+
+    def __init__(self, blob: bytes, max_batch: int = 8, devices=None):
+        if devices is None:
+            devices = [f"cuda:{i}" for i in range(max(1, torch.cuda.device_count()))]
+        if not devices:
+            raise ValueError("devices must name at least one device")
+        n = len(devices)
+        top = max(((max_batch + n - 1) // n) * n, n)
+        super().__init__(blob, max_batch=top // n, device=devices[0])
+        self.replicas = [self] + [ArtifactRunner(blob, top // n, d) for d in devices[1:]]
+        self.devices = [r.device for r in self.replicas]
+        self.buckets, b = [], n
+        while b < top:
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(top)
+        self.max_batch = top
+        self._streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
+                         for r in self.replicas]
+
+    def _execute(self, frames: np.ndarray, waves: np.ndarray, b: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        n = frames.shape[0]
+        if b != n:
+            frames = np.concatenate([frames, np.zeros((b - n, *frames.shape[1:]), frames.dtype)])
+            waves = np.concatenate([waves, np.zeros((b - n, *waves.shape[1:]), waves.dtype)])
+        m = b // len(self.replicas)
+        launched = []
+        for i, (replica, stream) in enumerate(zip(self.replicas, self._streams)):
+            with _on(stream):
+                launched.append(replica._launch(frames[i * m:(i + 1) * m],
+                                                waves[i * m:(i + 1) * m], m))
+        parts = []
+        for (masks, heatmaps), stream in zip(launched, self._streams):
+            with _on(stream):   # read on the stream that computed them
+                parts.append((masks.cpu().numpy(), heatmaps.cpu().numpy()))
+        return (np.concatenate([p[0] for p in parts])[:n],
+                np.concatenate([p[1] for p in parts])[:n])
+
+
+def _on(stream: torch.cuda.Stream | None):
+    """`torch.cuda.stream(stream)`, or nothing for a CPU replica."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
 class _Pending:

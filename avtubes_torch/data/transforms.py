@@ -447,6 +447,12 @@ class AugmentDraws:
     order: torch.Tensor        # int64 (n, 4): each sample's jitter-op order, on the CPU
     flip2: torch.Tensor        # bool: flip view 2 after the resize
 
+    def rows(self, start: int, stop: int) -> AugmentDraws:
+        """The draws of samples [start, stop): a rank's slice of the global
+        batch's draws."""
+        return AugmentDraws(*(getattr(self, f.name)[start:stop]
+                              for f in dataclasses.fields(self)))
+
 
 def sample_augment_draws(b: int, generator: torch.Generator, jitter_order: str = "random",
                          image_size: int = 224, clip_size: int | None = None) -> AugmentDraws:

@@ -35,6 +35,7 @@ from torch import nn
 from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_head
 from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
+from avtubes_torch.parallel import pool_head
 
 
 class AVENet(nn.Module):
@@ -93,7 +94,7 @@ class AVENet(nn.Module):
         return hardway_head(img, aud, self.hardway)
 
     def two_view_forward(self, frames: torch.Tensor, augmented: torch.Tensor,
-                         audio: torch.Tensor, t: int
+                         audio: torch.Tensor, t: int, negative_pool: str = "global"
                          ) -> tuple[HardwayOutput, HardwayOutput]:
         """Both training views with the audio encoded ONCE per clip.
 
@@ -108,9 +109,14 @@ class AVENet(nn.Module):
         _advance_audio_stats`).  The image BatchNorm sees the clean view's
         update and then the augmented view's, in that order.
 
+        Both views take the head of `negative_pool` (`parallel/__init__.py`):
+        across ranks, 'global' contrasts against the audio features of
+        every rank's frames, 'device' against the rank's own.
+
         frames/augmented: (B*T, H, W, 3); audio: (B, F, Tt, 1).
         """
+        head = pool_head(negative_pool)
         aud = self.encode_audio(audio).repeat_interleave(t, dim=0)    # (B*T, 512)
-        out1 = hardway_head(self.encode_image(frames), aud, self.hardway)
-        out2 = hardway_head(self.encode_image(augmented), aud, self.hardway)
+        out1 = head(self.encode_image(frames), aud, self.hardway)
+        out2 = head(self.encode_image(augmented), aud, self.hardway)
         return out1, out2

@@ -1,8 +1,9 @@
 """Dual-modal 2D ResNet encoder (PyTorch).
 
-Counterpart of `avtubes/models/resnet2d.py` (and of `models/norm.py`, whose
-`TorchBatchNorm` only imitates `nn.BatchNorm2d(eps=1e-5, momentum=0.1)` —
-here it is the real one):
+Counterpart of `avtubes/models/resnet2d.py`.  Its BatchNorm is
+`models/norm.py::BatchNorm2d(eps=1e-5, momentum=0.1)`: `nn.BatchNorm2d`
+itself, whose training statistics are the global batch's when a process
+group is up:
 
   * three stems selected by `modal`: 1-channel audio spectrogram, 3-channel
     RGB, 6-channel stacked flow — all 7x7/stride-2/pad-3 convs;
@@ -55,6 +56,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from avtubes_torch.models.norm import BatchNorm2d
 from avtubes_torch.ops.int8_conv import quant_conv2d, quantize_weight
 
 STEM_CHANNELS = {"vision": 3, "audio": 1, "flow": 6}
@@ -125,8 +127,8 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
     return cls(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+def _bn(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

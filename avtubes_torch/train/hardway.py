@@ -24,15 +24,25 @@ parts that the 1-frame and 3D tube trainers (`train/hardway_1frame.py`,
 `--remat` checkpoints each backbone call (`models/remat.py`): the same
 step, with each backbone's forward run again in the backward pass.
 
-Single process, one device.  What the JAX package has and this port does
-not, and which raises rather than run something else: `--group_steps > 1`
-(not to port) and more than one process (not yet).
+More than one process (`core/distributed.py`; one card a rank, NCCL on the
+card, gloo on the CPU), as in the JAX package: `--batch_size` is per rank
+(the global batch is batch_size x world), each rank reads `ids[rank::world]`
+and runs the agreed number of steps an epoch (`agreed_steps_per_epoch`,
+`fixed_count_batches`), draws the augmentation of the GLOBAL batch from the
+same generator and takes its own rows, and the step averages the gradients
+over the ranks, with the BatchNorm statistics and the negative pool of the
+global batch.  A preemption signal is agreed at the epoch boundary (an
+all-reduce of the flag) and the completed epoch saved.  The primary alone
+logs, evaluates and writes checkpoints; the others wait at a barrier.  This
+is the only trainer that runs multi-process: the others refuse it
+(`require_single_process`).
+
+What the JAX package has and this port does not, and which raises rather
+than run something else: `--group_steps > 1` (not to port).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import os
 import time
 from collections.abc import Callable
 from pathlib import Path
@@ -47,7 +57,18 @@ from avtubes_torch.core.checkpoint import (
     save_checkpoint,
 )
 from avtubes_torch.core.config import ExperimentConfig
-from avtubes_torch.core.device import resolve_device
+from avtubes_torch.core.distributed import (
+    agreed_steps_per_epoch,
+    barrier,
+    check_group_matches_environment,
+    data_shard,
+    fixed_count_batches,
+    is_primary,
+    local_device,
+    preempted_anywhere,
+    rank,
+    world_size,
+)
 from avtubes_torch.core.reference_checkpoint import load_reference_checkpoint
 from avtubes_torch.data.index import load_split
 from avtubes_torch.data.pipeline import (
@@ -85,12 +106,6 @@ def check_supported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "--group_steps > 1 groups steps to amortize a TPU dispatch; it is in "
             "ROADMAP.md's 'Not to port'")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "more than one process is not ported to avtubes_torch (ROADMAP.md "
-            "Queue 1 item 7, multi-GPU)")
 
 
 def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None) -> AVENet:
@@ -103,43 +118,59 @@ def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None)
 
 
 def build_sources(cfg: ExperimentConfig):
-    """(train source, test source, number of training ids)."""
+    """(train source, test source, number of training ids of the whole
+    split).  Across ranks each reads `ids[rank::world]`; the count is the
+    split's, from which every rank agrees on its steps an epoch."""
     d = cfg.data
     if d.synthetic:
         train_src = SyntheticSource(d, n=max(4 * cfg.optim.batch_size, 8))
         test_src = SyntheticSource(d, n=8, clip=False, seed=1)
         return train_src, test_src, len(train_src)
-    train_ids = load_split(d.metadata_dir, d.testset, "train", d.subset)
+    all_train_ids = load_split(d.metadata_dir, d.testset, "train", d.subset)
+    shard = data_shard()
+    train_ids = all_train_ids[shard[0]::shard[1]] if shard else all_train_ids
     test_ids = load_split(d.metadata_dir, d.testset, "test_hardway")
     train_src = ClipTrainSource(d.data_path, train_ids, d)
     test_src = HardwayTestSource(d.og_data_path or d.data_path, test_ids, d)
-    return train_src, test_src, len(train_ids)
+    return train_src, test_src, len(all_train_ids)
 
 
 def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
         do_eval: bool = True) -> dict:
     """Train, evaluate and checkpoint on `cfg.train.device` (the card unless
-    the CPU is asked for).  Returns the last step's metrics with the last
-    evaluation's and the loader's skip count."""
+    the CPU is asked for; across ranks the rank's own card).  Returns the
+    last step's metrics with the last evaluation's (the primary's) and the
+    loader's skip count."""
     d, o = cfg.data, cfg.optim
     check_supported(cfg)
-    device = resolve_device(cfg.train.device)
-    if cfg.train.negative_pool == "device":
-        # the per-device pool of the JAX package's formula on one device:
-        # every frame of the batch
-        cfg = dataclasses.replace(cfg, hardway=dataclasses.replace(
-            cfg.hardway, pool_block=o.batch_size * max(d.frame_density, 1)))
+    check_group_matches_environment()
+    device = local_device(cfg.train.device)
+    world, me = world_size(), rank()
+    multiproc = world > 1
+    # `--negative_pool device`: the JAX package's per-device pool is the
+    # frames of one device (its `pool_block`); one card a rank, that is the
+    # rank's whole local batch, which the local head contrasts
+    # (`parallel/__init__.py`)
     spec_cfg = SpectrogramConfig(samplerate=d.samplerate, seconds=d.audio_seconds)
-    train_src, test_src, _ = build_sources(cfg)
+    train_src, test_src, n_train_total = build_sources(cfg)
     loader = BatchLoader(train_src, o.batch_size, num_workers=d.n_threads,
                          shuffle=True, seed=cfg.train.seed)
-    steps_per_epoch = max(1, len(loader) if steps_cap == 0 else min(len(loader), steps_cap))
+    if multiproc:
+        # every rank runs the same number of collective steps, derived from
+        # the split's size, not from the local loader
+        steps_per_epoch = agreed_steps_per_epoch(n_train_total, o.batch_size)
+        if steps_cap:
+            steps_per_epoch = min(steps_per_epoch, steps_cap)
+    else:
+        steps_per_epoch = max(1, len(loader) if steps_cap == 0
+                              else min(len(loader), steps_cap))
+    # the same seed on every rank: the parameters start replicated
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(device)
     state = create_train_state(model, o, steps_per_epoch)
 
     state, start_epoch = warm_start_or_resume(cfg, tag, state, load_reference_checkpoint)
 
-    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
+    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag, enabled=is_primary())
     guard = PreemptionGuard()
     last_metrics: dict = {}
     watch = cfg.train.watch_every > 0
@@ -149,24 +180,33 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
         pf_gt_lookup = (make_gt_lookup_auto(d, per_frame=True)
                         if not d.synthetic and d.gt_path else None)
     for epoch in range(start_epoch, o.epochs):
-        # the epoch's augmentation draws, made on the host
+        # the epoch's augmentation draws, made on the host: the global
+        # batch's, from the same generator on every rank, each rank taking
+        # its own rows (a world-n step is a world-1 step on the concatenated
+        # batch)
         gen = torch.Generator().manual_seed((cfg.train.seed + 1) * 1_000_003 + epoch)
 
         def step(batch: dict) -> dict:
             clip = batch["clip"]
-            draws = sample_augment_draws(clip.shape[0], gen, cfg.train.jitter_order,
+            b = clip.shape[0]
+            draws = sample_augment_draws(b * world, gen, cfg.train.jitter_order,
                                          d.image_size, clip_size=clip.shape[2])
-            return hardway_fused_train_step(state, clip, batch["waveform"], draws, spec_cfg,
-                                            o.loss_weight, d.image_size, watch)
+            return hardway_fused_train_step(state, clip, batch["waveform"],
+                                            draws.rows(me * b, (me + 1) * b), spec_cfg,
+                                            o.loss_weight, d.image_size, watch,
+                                            negative_pool=cfg.train.negative_pool)
 
         metrics = train_epoch(state, loader, epoch, device, cfg, steps_cap, logger, guard,
-                              step)
+                              step, agreed_steps=steps_per_epoch if multiproc else 0)
         if metrics:  # an epoch can yield zero batches (all skipped)
             last_metrics = metrics
-        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard):
+        # consensus: preempt everywhere if ANY rank caught a signal
+        guard.preempted = preempted_anywhere(guard.preempted, device)
+        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard,
+                                  epoch_complete=multiproc):
             break
 
-        if do_eval:
+        if do_eval and is_primary():
             eval_metrics = hardway_test(state, test_src, d, spec_cfg, gt_lookup, epoch,
                                         logger, cfg.train.record_qualitative)
             last_metrics.update(eval_metrics)
@@ -181,14 +221,24 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
                                        epoch=epoch)
                 last_metrics.update(pf)
                 logger.log(step=state.step, epoch=epoch, **pf)
+        if do_eval:
+            barrier(f"avtubes_eval_ep{epoch}")   # the others wait out the evaluation
 
         if (epoch + 1) % cfg.train.checkpoint_every_epochs == 0:
-            save_checkpoint(cfg.train.summaries_dir, tag, epoch, state)
+            save_on_primary(cfg.train.summaries_dir, tag, epoch, state)
 
     logger.close()
     guard.restore()
     last_metrics["skipped_samples"] = loader.skipped
     return last_metrics
+
+
+def save_on_primary(summaries_dir, tag: str, epoch: int, state: TrainState) -> None:
+    """The primary alone writes the checkpoint; then every rank meets at a
+    barrier, so none resumes or goes on before the file is whole."""
+    if is_primary():
+        save_checkpoint(summaries_dir, tag, epoch, state)
+    barrier(f"avtubes_checkpoint_{tag}_ep{epoch}")
 
 
 def warm_start_or_resume(cfg: ExperimentConfig, tag: str, state: TrainState,
@@ -213,16 +263,24 @@ def warm_start_or_resume(cfg: ExperimentConfig, tag: str, state: TrainState,
 
 def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torch.device,
                 cfg: ExperimentConfig, steps_cap: int, logger: MetricLogger,
-                guard: PreemptionGuard, step: Callable[[dict], dict]) -> dict[str, float]:
+                guard: PreemptionGuard, step: Callable[[dict], dict],
+                agreed_steps: int = 0) -> dict[str, float]:
     """One epoch of `step(batch)` (one update; returns its metrics as
     tensors) over the loader's batches, prefetched to `device`, at most
     `steps_cap` of them (0: all) and none after a preemption signal.  Logs
     every `log_every`-th step (every step under a cap) with the loader's
     wait, and the per-module norms every `watch_every`-th.  Returns the last
-    step's metrics as floats; empty when the epoch yielded no batch."""
+    step's metrics as floats; empty when the epoch yielded no batch.
+
+    Across ranks (`agreed_steps` > 0) the epoch is EXACTLY `agreed_steps`
+    batches (`fixed_count_batches`) and a preemption signal does not stop
+    it: a rank that left mid-epoch would strand its peers inside the next
+    collective, so the signal is agreed at the epoch's end instead."""
     step_in_epoch = 0
     metrics: dict = {}
-    batches = device_prefetch(loader.epoch(epoch), device, depth=cfg.data.prefetch)
+    source = (fixed_count_batches(loader, epoch, agreed_steps) if agreed_steps
+              else loader.epoch(epoch))
+    batches = device_prefetch(source, device, depth=cfg.data.prefetch)
     try:
         while not (steps_cap and step_in_epoch >= steps_cap):
             t0 = time.perf_counter()
@@ -240,7 +298,7 @@ def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torc
             if norms and step_in_epoch % cfg.train.watch_every == 0:
                 logger.log(step=state.step, epoch=epoch,
                            **{k: float(v) for k, v in norms.items()})
-            if guard.preempted:
+            if guard.preempted and not agreed_steps:
                 break
     finally:
         batches.close()
@@ -249,16 +307,18 @@ def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torc
 
 def end_of_epoch_preempted(state: TrainState, loader: BatchLoader, epoch: int,
                            cfg: ExperimentConfig, tag: str, logger: MetricLogger,
-                           guard: PreemptionGuard) -> bool:
+                           guard: PreemptionGuard, epoch_complete: bool = False) -> bool:
     """Log the epoch's skipped samples; after a preemption signal save the
-    state and return True.  The partial epoch is saved under the PREVIOUS
-    epoch's number, so a resume re-runs it from the top (epoch - 1 may be
-    -1: it restarts at 0)."""
+    state (the primary) and return True.  A partial epoch is saved under the
+    PREVIOUS epoch's number, so a resume re-runs it from the top (epoch - 1
+    may be -1: it restarts at 0); a complete one (`epoch_complete`: across
+    ranks the signal is agreed at the epoch's end) under its own."""
     if loader.epoch_skipped:
         logger.log(step=state.step, epoch=epoch, epoch_skipped=loader.epoch_skipped)
     if not guard.preempted:
         return False
-    save_checkpoint(cfg.train.summaries_dir, tag, epoch - 1, state)
+    save_on_primary(cfg.train.summaries_dir, tag, epoch if epoch_complete else epoch - 1,
+                    state)
     print(f"[train] preempted during epoch {epoch}; checkpoint saved")
     return True
 

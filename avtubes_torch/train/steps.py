@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from avtubes_torch.core.convert import flax_path
+from avtubes_torch.core.distributed import all_reduce_mean_
 from avtubes_torch.data.spectrogram import SpectrogramConfig, log_spectrogram
 from avtubes_torch.data.transforms import (
     AugmentDraws,
@@ -114,18 +115,26 @@ def pytree_group_norms(named: Iterable[tuple[str, torch.Tensor]],
 
 def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch.Tensor,
                        spec: torch.Tensor, loss_weight: float = 0.1,
-                       watch: bool = False) -> dict[str, torch.Tensor]:
+                       watch: bool = False, negative_pool: str = "global"
+                       ) -> dict[str, torch.Tensor]:
     """One update from a clean view (B, T, H, W, 3), an augmented view of the
     same shape and per-clip spectrograms (B, F, Tt, 1), all on the model's
     device.  Updates `state` in place; returns the metrics as zero-dimensional
     tensors (reading one waits for the device).  `watch` adds per-module
-    gradient and parameter norms."""
+    gradient and parameter norms.
+
+    Under a process group the batch is this rank's slice of the global
+    batch: the BatchNorm statistics and the `negative_pool` head span the
+    ranks, and the gradients and the metrics are averaged over them in one
+    all-reduce after the backward (the gradient of the global batch's mean
+    loss), so every rank takes the same update."""
     b, t = frames.shape[:2]
     model = state.model
     model.train()
     old_stats = _audio_stats(model)
     state.optimizer.zero_grad(set_to_none=True)
-    out, out2 = model.two_view_forward(_fold_time(frames), _fold_time(augmented), spec, t)
+    out, out2 = model.two_view_forward(_fold_time(frames), _fold_time(augmented), spec, t,
+                                       negative_pool)
     hw = hardway_loss(out.logits) * loss_weight
     aug = hardway_loss(out2.logits) * loss_weight
     l2 = consistency_l2(out.weighted_map, out2.weighted_map) * (100.0 - loss_weight)
@@ -134,10 +143,14 @@ def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch
     prop = propagation_loss(att1) + propagation_loss(att2)
     combined = (hw + aug) / 2.0 + l2 + prop
     combined.backward()
+    metrics = {k: v.detach().clone() for k, v in (
+        ("loss", combined), ("hardway_loss", hw), ("aug_loss", aug), ("l2_loss", l2),
+        ("consistency_loss", prop))}
+    all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None]
+                     + list(metrics.values()))
     state.apply_gradients()
     _advance_audio_stats(model, old_stats)
-    return _finish(model, {"loss": combined, "hardway_loss": hw, "aug_loss": aug,
-                           "l2_loss": l2, "consistency_loss": prop}, watch)
+    return _finish(model, metrics, watch)
 
 
 def _finish(model: nn.Module, metrics: dict[str, torch.Tensor],
@@ -155,15 +168,17 @@ def hardway_fused_train_step(state: TrainState, clips_uint8: torch.Tensor,
                              waveforms: torch.Tensor, draws: AugmentDraws,
                              spec_cfg: SpectrogramConfig, loss_weight: float = 0.1,
                              image_size: int = 224, watch: bool = False,
-                             impl: str = "kernel") -> dict[str, torch.Tensor]:
+                             impl: str = "kernel", negative_pool: str = "global"
+                             ) -> dict[str, torch.Tensor]:
     """The whole training step from raw inputs on the model's device:
     host-cropped clips (B, T, S, S, 3) uint8 and prepared waveforms
     (B, num_samples) in any audio transport.  Log-spectrogram (K1 on the
     card; `impl='plain'` runs its plain version), two-view augmentation with
-    `draws`, both forward passes, the 4-term loss, the Adam update."""
+    `draws` (this rank's rows of the global batch's draws), both forward
+    passes, the 4-term loss, the Adam update (`hardway_train_step`)."""
     spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
     v1, v2 = augment_train_batch(clips_uint8, draws, image_size)
-    return hardway_train_step(state, v1, v2, spec, loss_weight, watch)
+    return hardway_train_step(state, v1, v2, spec, loss_weight, watch, negative_pool)
 
 
 def hardway_1frame_train_step(state: TrainState, frames: torch.Tensor, spec: torch.Tensor,

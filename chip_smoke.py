@@ -1054,13 +1054,15 @@ class EventTimedRunner:
         return out
 
 
-def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray
+def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray,
+                   shards: int = 1
                    ) -> tuple[np.ndarray, np.ndarray, dict, float, dict[str, int]]:
     """The main path: concurrent requests through the micro-batcher (which
     first warms the runner in its own thread), with K1's and K2's counts set
-    to 0 just before and read just after.  Returns (masks, heatmaps, batcher
-    stats with `warmup_s` and each batch's `batch_ms_by_events`, wall
-    seconds from the end of the warm-up, launches)."""
+    to 0 just before and read just after: each launched once a batch on
+    each of the runner's `shards` replicas.  Returns (masks, heatmaps,
+    batcher stats with `warmup_s` and each batch's `batch_ms_by_events`,
+    wall seconds from the end of the warm-up, launches)."""
     timed_runner = EventTimedRunner(runner)
     batcher = MicroBatcher(timed_runner, window_ms=5.0)
     try:
@@ -1086,7 +1088,8 @@ def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray
     require(len(answers) == N_REQUESTS and stats["requests"] == N_REQUESTS, stats)
     require(stats["errors"] == 0 and stats["cancelled"] == 0, stats)
     require(launches["stft"] > 0 and launches["median_select"] > 0, launches)
-    require(launches["stft"] == launches["median_select"] == stats["batches"], (launches, stats))
+    require(launches["stft"] == launches["median_select"] == stats["batches"] * shards,
+            (launches, stats, shards))
     masks = np.stack([a[0] for a in answers])
     heat = np.stack([a[1] for a in answers])
     check_outputs(masks, heat, N_REQUESTS)
@@ -1713,6 +1716,8 @@ def phase_train(dev: torch.device, report: str, shared: str) -> dict[str, dict[s
                              "median_select": TRAIN_EVAL_BATCHES}, launches)
         ckpts = check_checkpoint(run_dir, "hardway16")
         shutil.copy(os.path.join(run_dir, ckpts[0]), shared)
+        # phase multigpu holds the one-rank NCCL run of this command to it
+        shutil.copy(os.path.join(run_dir, "hardway16.metrics.jsonl"), shared)
         lap("cli")
 
         # ---- (a') the same command with --remat, its backbones checkpointed
@@ -3019,6 +3024,430 @@ def phase_library(dev: torch.device, report: str, refs: dict) -> None:
          zoo=zoo, part_seconds=lap.seconds)
 
 
+# phase multigpu: the flagship trainer and sharded serving across processes
+# and replicas.  The card's machine has one H100, and NCCL refuses two ranks
+# on one card, so semantics across two or more ranks are held on the CPU over
+# gloo (tests/test_torch_port_{distributed,parallel,norm}.py); here the same
+# code runs in a one-rank NCCL group with every collective on its path
+DDP_CLI_LOSS_RTOL = 1e-3   # bf16 losses: torchrun's one rank vs phase train's single process
+DDP_LOSS_RTOL = 1e-5       # one float32 step from one state: the group's vs the plain one
+DDP_STATS_RTOL = 1e-5
+# the gradients of the head's inputs (the pooled audio features), of the
+# tensor's largest entry: the part of the backward that the pooled keys'
+# all-gather shapes, upstream of the towers' float32 noise
+DDP_FEATURE_GRAD_RTOL = 1e-3
+# the towers' weight gradients: float32 gradients of this step part from
+# float64 by up to 5.4 % of a tensor's largest entry in the plain step
+# itself (audnet.layer2.0.conv1.weight; median 0.40 %: sums over 557k
+# positions a channel that cancel), and the group's BatchNorm sums in its
+# own order; so the group's distance from the float64 step, the median and
+# the largest over the tensors, is held to at most this multiple of the
+# plain step's, plus 1e-3
+DDP_GRAD_VS_FLOAT64_RATIO = 1.25
+DDP_TIMED_STEPS = 2
+#: collectives of one flagship step in a group: each of the 60 BatchNorm
+#: calls (20 a tower, the image tower twice) all-gathers its statistics and
+#: all-reduces its two gradient sums; each view's head all-gathers the audio
+#: features and all-reduces their gradient; one all-reduce averages the
+#: gradients and the metrics
+DDP_COLLECTIVES_PER_STEP = {"all_gather": 62, "all_reduce": 63}
+SHARD_DEVICES = (["cuda:0"], ["cuda:0", "cuda:0"])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun_child(argv: list[str]) -> int:
+    """`chip_smoke.py --torchrun-child OUT ARGS...`, run by
+    `torch.distributed.run`: the flagship CLI's `main(ARGS)` in this rank,
+    K1's and K2's counts set to 0 just before and read just after; writes
+    {final, launches, backend, world_size, device} to OUT."""
+    from avtubes_torch.cli import train_hardway as train_cli
+    from avtubes_torch.core.distributed import local_device
+
+    out, args = argv[0], argv[1:]
+    seen = {}
+    real_run = train_cli.run
+
+    def run(cfg, **kwargs):
+        dist = torch.distributed
+        seen.update(backend=dist.get_backend() if dist.is_initialized() else None,
+                    world_size=dist.get_world_size() if dist.is_initialized() else 1,
+                    device=str(local_device(cfg.train.device)))
+        return real_run(cfg, **kwargs)
+
+    train_cli.run = run
+    zero_counts()
+    final = train_cli.main(args)
+    with open(out, "w") as fh:
+        json.dump({"final": final, **seen,
+                   "launches": {"stft": k1.log_spectrogram_cuda.launches,
+                                "median_select": k2.median_mask_cuda.launches}}, fh)
+    return 0
+
+
+@contextlib.contextmanager
+def collectives_counted():
+    """Counts, by name, the calls of `torch.distributed.all_gather` and
+    `all_reduce` inside (the port calls them through the module)."""
+    dist = torch.distributed
+    calls = {"all_gather": 0, "all_reduce": 0}
+    real = {name: getattr(dist, name) for name in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(dist, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def step_outcome(state, step) -> tuple[float, dict, dict, dict]:
+    """(loss, gradients, running statistics, more) of one `step(state)`;
+    more: the parameters after the update, the gradient of the pooled audio
+    features (B, 512) and, per clip and channel, the position that wins the
+    audio tower's global max pool."""
+    net = state.model
+    audio = {}
+    real_encode = net.encode_audio
+
+    def encode_audio(x):
+        feats = real_encode(x)
+        feats.register_hook(lambda g: audio.__setitem__("feature_grad", g.detach().clone()))
+        return feats
+
+    def record_argmax(module, inputs, out):
+        audio["argmax"] = out.detach().flatten(1, 2).argmax(dim=1)
+
+    net.encode_audio = encode_audio
+    hook = net.audnet.register_forward_hook(record_argmax)
+    try:
+        loss = float(step(state)["loss"])
+    finally:
+        hook.remove()
+        del net.encode_audio
+    audio["params"] = {n: p.detach().clone() for n, p in net.named_parameters()}
+    return (loss, {n: p.grad.detach().clone() for n, p in net.named_parameters()},
+            {k: v.detach().clone() for k, v in net.state_dict().items() if "running" in k},
+            audio)
+
+
+def event_ms(step, state, n: int) -> list[float]:
+    """Each of `n` steps' milliseconds by CUDA events."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for i in range(n):
+        step(state)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def shard_request(proc: subprocess.Popen, frame: np.ndarray, wave: np.ndarray,
+                  samplerate: int) -> tuple[str, np.ndarray]:
+    """One request to a started `python -m avtubes_torch.cli.serve --shard`
+    once it says it serves: (the line that says how many devices it shards
+    over, the answered heatmap)."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    timer = threading.Timer(300.0, proc.kill)
+    timer.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("serving "):
+                break
+    finally:
+        timer.cancel()
+    require(lines and lines[-1].startswith("serving "), lines[-20:])
+    sharding = next((ln for ln in lines if ln.startswith("sharding batches")), "")
+    url = lines[-1].split(" on ")[1].split(" ")[0]
+    buf = BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    body = {"image": base64.b64encode(buf.getvalue()).decode(),
+            "pcm": base64.b64encode(wave.astype("<f4").tobytes()).decode(),
+            "samplerate": samplerate}
+    req = urllib.request.Request(url + "/localize", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        require(resp.status == 200, resp.status)
+        answer = json.loads(resp.read())
+    return sharding, np.asarray(answer["heatmap"], np.float32)
+
+
+class MultigpuStarts:
+    """Phase multigpu's two subprocesses, started before phase quant (which
+    times nothing) so that their start-up (a process, CUDA, NCCL, cuDNN)
+    overlaps it: phase train's command under `torch.distributed.run` with
+    one rank (`--torchrun-child`), and `serve --shard` on a bf16 artifact of
+    the seeded localizer.  `close` stops whichever still runs."""
+
+    def __init__(self, cfg: SpectrogramConfig):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.tmp = tempfile.mkdtemp()
+        self.run_dir = os.path.join(self.tmp, "run")
+        self.out = os.path.join(self.tmp, "child.json")
+        self.log = os.path.join(self.tmp, "torchrun.log")
+        gen = torch.Generator().manual_seed(SEED)
+        seeded = perturb_running_stats(AVENet(generator=gen, compute_dtype="float32"), gen)
+        seeded_bf16 = AVENet(compute_dtype="bfloat16")
+        seeded_bf16.load_state_dict(seeded.state_dict(), strict=True)
+        self.blobs = {dtype: export_localizer(net, cfg, image_size=IMAGE_SIZE,
+                                              audio_transport="float32")
+                      for dtype, net in (("float32", seeded), ("bfloat16", seeded_bf16))}
+        model_path = os.path.join(self.tmp, "model.avt")
+        with open(model_path, "wb") as fh:
+            fh.write(self.blobs["bfloat16"])
+        args = ["--synthetic", "--batch_size", str(TRAIN_BATCH),
+                "--frame_density", str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE),
+                "--epochs", "1", "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
+                "--summaries_dir", self.run_dir]
+        self.t0 = time.monotonic()
+        with open(self.log, "w") as log:
+            self.torchrun = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1", os.path.abspath(__file__), "--torchrun-child",
+                 self.out, *args], cwd=here, stdout=log, stderr=subprocess.STDOUT)
+        self.server = subprocess.Popen(
+            [sys.executable, "-m", "avtubes_torch.cli.serve", "--model", model_path, "--shard",
+             "--port", "0", "--max_batch", str(MAX_BATCH)],
+            cwd=here, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    def close(self) -> None:
+        for proc in (self.torchrun, self.server):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        self.server.stdout.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_multigpu(dev: torch.device, report: str, shared: str,
+                   starts: MultigpuStarts) -> dict[str, dict[str, int]]:
+    """The flagship trainer under `torch.distributed.run` (one rank, NCCL),
+    one float32 step in a one-rank NCCL group against the plain step and a
+    float64 one, `ShardedArtifactRunner` with one and two replicas on the
+    card, and one request through `serve --shard` (the torchrun run and the
+    server: `starts`, begun before phase quant).  The group's step is timed
+    after the torchrun run has ended.  Returns K1's and K2's launches on the
+    torchrun CLI run (`train_ddp`) and on the two-replica bf16 serving
+    (`serve_shard`)."""
+    import torch.distributed as dist
+
+    from avtubes_torch.core import distributed
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.core.serving import ShardedArtifactRunner
+    from avtubes_torch.train.steps import hardway_fused_train_step
+
+    from profile_torch_train_step import recipe_batch
+
+    cfg = SpectrogramConfig()
+    lap = Laps()
+    blobs, run_dir, out = starts.blobs, starts.run_dir, starts.out
+    torchrun, server = starts.torchrun, starts.server
+    frames, waves = make_requests(cfg)
+    try:
+        # ---- (c) sharded serving in this process: one and two replicas
+        # against ArtifactRunner (the autotuner off, as in the other phases)
+        f8 = torch.from_numpy(frames[:MAX_BATCH]).to(dev)
+        w8 = torch.from_numpy(waves[:MAX_BATCH]).to(dev)
+        base, sharded, launches_by_run = {}, {}, {}
+        for dtype, blob in blobs.items():
+            runner = ArtifactRunner(blob, max_batch=MAX_BATCH)
+            parts = [runner.run(frames[i:i + MAX_BATCH], waves[i:i + MAX_BATCH])
+                     for i in range(0, N_REQUESTS, MAX_BATCH)]
+            base[dtype] = (np.concatenate([p[0] for p in parts]),
+                           np.concatenate([p[1] for p in parts]), runner.pipeline.model)
+        for devices in SHARD_DEVICES:
+            n = len(devices)
+            for dtype, blob in blobs.items():
+                runner = ShardedArtifactRunner(blob, max_batch=MAX_BATCH, devices=devices)
+                require(all(b % n == 0 for b in runner.buckets)
+                        and runner.devices == [torch.device(d) for d in devices],
+                        (runner.buckets, runner.devices))
+                masks, heat, stats, wall, launches = serve_requests(runner, frames, waves, n)
+                ref_masks, ref_heat, ref_model = base[dtype]
+                if dtype == "float32":
+                    vs = compare(masks, heat, ref_masks, ref_heat,
+                                 f"{n} replicas vs ArtifactRunner")
+                else:
+                    with torch.inference_mode():
+                        nf = normalize_imagenet(f8)
+                        spec = log_spectrogram(w8, cfg)[..., None]
+                        logits = runner.pipeline.model(nf, spec).logits.float().cpu().numpy()
+                        ref_logits = ref_model(nf, spec).logits.float().cpu().numpy()
+                    vs = bf16_vs_fp32(masks, heat, ref_masks, ref_heat, logits, ref_logits)
+                key = f"{n}_replicas_{dtype}"
+                sharded[key] = {"vs_artifact_runner": vs,
+                                "requests_per_s": N_REQUESTS / wall,
+                                "batch_hist": stats["batch_hist"], "launches": launches,
+                                "buckets": runner.buckets,
+                                "batch_ms_by_events": stats["batch_ms_by_events"]}
+                launches_by_run[key] = launches
+                del runner
+        lap("sharded_serving")
+
+        # ---- (a) the torchrun run's outcome
+        rc = torchrun.wait(timeout=600)
+        ddp_cli_s = time.monotonic() - starts.t0
+        with open(starts.log) as fh:
+            require(rc == 0, f"torchrun exit {rc}:\n{fh.read()[-6000:]}")
+        with open(out) as fh:
+            child = json.load(fh)
+        require(child["backend"] == "nccl" and child["world_size"] == 1
+                and child["device"] == "cuda:0", child)
+        require(child["launches"] == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
+                                      "median_select": TRAIN_EVAL_BATCHES}, child)
+        check_checkpoint(run_dir, "hardway16")        # written once, by the primary
+        with open(os.path.join(run_dir, "hardway16.metrics.jsonl")) as fh:
+            ddp_losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
+        with open(os.path.join(shared, "hardway16.metrics.jsonl")) as fh:
+            single_losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
+        final = child["final"]
+        require(final["hardway_n"] == 8 and 0.0 <= final["hardway_auc"] <= 1.0, final)
+        require(len(ddp_losses) == len(single_losses) == TRAIN_STEPS
+                and np.isfinite(ddp_losses).all(), (ddp_losses, single_losses))
+        cli_rel = float(np.max(np.abs(np.subtract(ddp_losses, single_losses))
+                               / np.abs(single_losses)))
+        require(cli_rel <= DDP_CLI_LOSS_RTOL, (ddp_losses, single_losses))
+        lap("cli_torchrun_after_serving")
+
+        # ---- (d) one request over HTTP through `serve --shard`
+        sharding, http_heat = shard_request(server, frames[0], waves[0], cfg.samplerate)
+    finally:
+        starts.close()
+    require(sharding == f"sharding batches over {torch.cuda.device_count()} devices", sharding)
+    http_pearson = float(np.corrcoef(http_heat.ravel(), base["bfloat16"][1][0].ravel())[0, 1])
+    require(http_pearson >= BF16_PEARSON, http_pearson)
+    lap("serve_shard_http")
+
+    # ---- (b) one float32 step in a one-rank NCCL group against the plain
+    # step, from one state, at the recipe batch; and the same in float64
+    batch = recipe_batch(dev, TRAIN_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg, seed=SEED + 7)
+    model = AVENet(generator=torch.Generator().manual_seed(SEED)).to(dev)
+
+    def step(st):
+        return hardway_fused_train_step(st, *batch, cfg, image_size=IMAGE_SIZE)
+
+    plain_state = _step_copy(model, False, OptimConfig())
+    plain = step_outcome(plain_state, step)
+    env = {"AVTUBES_COORDINATOR": f"127.0.0.1:{free_port()}", "AVTUBES_NUM_PROCESSES": "1",
+           "AVTUBES_PROCESS_ID": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.maybe_initialize("cuda")
+        backend = dist.get_backend()
+        require(backend == "nccl" and dist.get_world_size() == 1, backend)
+        group_state = _step_copy(model, False, OptimConfig())
+        with collectives_counted() as calls:
+            grouped = step_outcome(group_state, step)
+        group_ms = event_ms(step, group_state, DDP_TIMED_STEPS)
+    finally:
+        distributed.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    plain_ms = event_ms(step, plain_state, DDP_TIMED_STEPS)
+    del plain_state, group_state
+    # the same step in float64 (the backbones; the head is float32 always):
+    # the yardstick of both float32 steps' gradients
+    f64_state = _step_copy(model, False, OptimConfig())
+    f64_state.model.double()
+    f64_state.model.imgnet.compute_dtype = f64_state.model.audnet.compute_dtype = torch.float64
+    exact = step_outcome(f64_state, step)
+    del f64_state
+    torch.cuda.empty_cache()
+    require(calls == DDP_COLLECTIVES_PER_STEP, calls)
+    loss_rel = abs(grouped[0] - plain[0]) / abs(plain[0])
+
+    def rel(got: torch.Tensor, want: torch.Tensor) -> float:
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    def worst(errs: dict) -> tuple[str, float]:
+        return max(errs.items(), key=lambda kv: kv[1])
+
+    grad_err = {n: rel(g, plain[1][n]) for n, g in grouped[1].items()}
+    group_vs_f64 = {n: rel(g, exact[1][n]) for n, g in grouped[1].items()}
+    plain_vs_f64 = {n: rel(g, exact[1][n]) for n, g in plain[1].items()}
+    over = {n: group_vs_f64[n] - plain_vs_f64[n] for n in grad_err}
+    stats_err = {k: rel(v, plain[2][k]) for k, v in grouped[2].items()}
+    feature_grad_err = rel(grouped[3]["feature_grad"], plain[3]["feature_grad"])
+    # a near tie of the audio tower's global max pool can change hands under
+    # float32 noise: that channel's gradient then goes to another position
+    switches = {k: int((grouped[3]["argmax"] != r[3]["argmax"]).sum())
+                for k, r in (("plain", plain), ("float64", exact))}
+    switches["plain_vs_float64"] = int((plain[3]["argmax"] != exact[3]["argmax"]).sum())
+    # Adam's first update is lr * sign(g): where float32 noise decides a
+    # gradient's sign the two updates split (recorded, not held)
+    lr, before = OptimConfig().learning_rate, model.state_dict()
+    moved = split = total = 0
+    for n, p_group in grouped[3]["params"].items():
+        diff = (p_group - plain[3]["params"][n]).abs()
+        require(float(diff.max()) <= 2 * lr * (1 + 1e-3), (n, float(diff.max())))
+        moved += int(((plain[3]["params"][n] - before[n]).abs() > 0.5 * lr).sum())
+        split += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+    vs_f64 = {name: {"median": float(np.median(list(errs.values()))), "max": worst(errs)}
+              for name, errs in (("group", group_vs_f64), ("plain", plain_vs_f64))}
+    require(loss_rel <= DDP_LOSS_RTOL, (grouped[0], plain[0]))
+    require(worst(stats_err)[1] <= DDP_STATS_RTOL, worst(stats_err))
+    require(feature_grad_err <= DDP_FEATURE_GRAD_RTOL, feature_grad_err)
+    for key in ("median", "max"):
+        got, bar = (vs_f64[k][key] for k in ("group", "plain"))
+        got, bar = (x[1] if isinstance(x, tuple) else x for x in (got, bar))
+        require(got <= DDP_GRAD_VS_FLOAT64_RATIO * bar + 1e-3, (key, vs_f64))
+    lap("fp32_step_in_a_group")
+
+    emit("multigpu", card=report, why_one_rank=(
+             "one H100 on this machine: NCCL refuses two ranks on one card, and gloo's "
+             "collectives on CUDA tensors are broadcast, all_reduce and barrier; the "
+             "semantics across ranks are held on the CPU over gloo"),
+         torchrun_cli={"backend": child["backend"], "world_size": child["world_size"],
+                       "device": child["device"], "steps": TRAIN_STEPS,
+                       "launches": child["launches"], "losses": ddp_losses,
+                       "losses_single_process": single_losses,
+                       "loss_max_rel_diff": cli_rel, "hardway_ciou": final["hardway_ciou"],
+                       "seconds_host_clock": round(ddp_cli_s, 2)},
+         fp32_step={"backend": backend, "loss_group": grouped[0], "loss_plain": plain[0],
+                    "loss_float64": exact[0], "loss_rel_diff": loss_rel,
+                    "grad_max_rel_err_vs_plain": worst(grad_err),
+                    "grad_max_rel_err_vs_plain_image": worst(
+                        {n: e for n, e in grad_err.items() if n.startswith("imgnet.")}),
+                    "grad_rel_err_vs_float64": vs_f64,
+                    "grad_rel_err_vs_float64_group_over_plain_max": worst(over),
+                    "audio_feature_grad_max_rel_err_vs_plain": feature_grad_err,
+                    "audio_max_pool_argmax_switches_of_the_group": switches,
+                    "adam_update": {"moved": moved, "split": split, "total": total},
+                    "running_stats_max_rel_err": worst(stats_err),
+                    "collectives_per_step": calls, "step_ms_group": group_ms,
+                    "step_ms_plain": plain_ms},
+         sharded=sharded, serve_shard={"line": sharding, "http_heatmap_pearson": http_pearson},
+         overlap=("the torchrun run and the server start as subprocesses before phase "
+                  "quant and run beside it and the sharded requests served here: "
+                  "those requests/s and the torchrun run's seconds are taken side by "
+                  "side"),
+         part_seconds=lap.seconds)
+    return {"train_ddp": child["launches"], "serve_shard": launches_by_run["2_replicas_bfloat16"]}
+
+
 def main() -> int:
     t_start = time.monotonic()
     lap = Laps()
@@ -3054,8 +3483,16 @@ def main() -> int:
         lap("train1f")
         tube3d_launches = phase_tube3d(dev, report, shared)
         lap("tube3d")
-        evaluation = phase_quant(dev, report, shared)
-        lap("quant")
+        # phase multigpu's subprocesses come up beside phase quant, which
+        # times nothing
+        starts = MultigpuStarts(SpectrogramConfig())
+        try:
+            evaluation = phase_quant(dev, report, shared)
+            lap("quant")
+            multigpu_launches = phase_multigpu(dev, report, shared, starts)
+        finally:
+            starts.close()
+        lap("multigpu")
     phase_library(dev, report, library_refs)
     lap("library")
     emit("seconds", by_phase=lap.seconds)
@@ -3070,7 +3507,8 @@ def main() -> int:
                         **{path: c["stft"] for path, c in tube3d_launches.items()},
                         "test_quantitative": evaluation["test_quantitative"]["stft"],
                         "visualize": evaluation["visualize"]["stft"],
-                        **{path: c["stft"] for path, c in native_launches.items()}},
+                        **{path: c["stft"] for path, c in native_launches.items()},
+                        **{path: c["stft"] for path, c in multigpu_launches.items()}},
                "median_select": {
                    "serve_bf16": served["bfloat16"]["median_select"],
                    "serve_fp32": served["float32"]["median_select"],
@@ -3080,7 +3518,8 @@ def main() -> int:
                    **{path: c["median_select"] for path, c in tube3d_launches.items()},
                    "test_quantitative": evaluation["test_quantitative"]["median_select"],
                    "visualize": evaluation["visualize"]["median_select"],
-                   **{path: c["median_select"] for path, c in native_launches.items()}},
+                   **{path: c["median_select"] for path, c in native_launches.items()},
+                   **{path: c["median_select"] for path, c in multigpu_launches.items()}},
                "correlation": {
                    "flow": flow_launches["forward"],
                    "flow_pretrain_clips": flowcons["flow_pretrain_clips"]["correlation"],
@@ -3115,4 +3554,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-child"]:
+        sys.exit(torchrun_child(sys.argv[2:]))
     sys.exit(main())

@@ -37,7 +37,7 @@ def test_expected_modules_exist():
                  "native", "cli.doctor", "data.sampler", "tools.validate",
                  "tools.create_training_set", "tools.convert_to_jpg",
                  "tools.convert_jpg_to_mp4", "tools.download_flickr", "models.zoo",
-                 "models.remat"):
+                 "models.remat", "core.distributed", "models.norm", "parallel"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "correlation.cu", "median_select.cu", "stft.cu"]
@@ -47,21 +47,38 @@ def test_expected_modules_exist():
 
 
 def test_importing_every_module_pulls_in_no_jax_and_builds_nothing():
+    """Importing every module pulls in nothing forbidden, and builds and
+    loads nothing: in the subprocess both build directories (the kernels'
+    and the native core's) point at a fresh empty directory, which must stay
+    empty, and every build or load entry records its calls, of which there
+    must be none.  The check sees its own subprocess only: other test
+    workers build into the shared `avtubes_torch/_build/` meanwhile."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, sys, tempfile, pathlib\n"
+        "from avtubes_torch.ops import _build\n"
+        "from avtubes_torch import native\n"
+        "fresh = pathlib.Path(tempfile.mkdtemp())\n"
+        "_build.BUILD_DIR = native.BUILD_DIR = fresh / '_build'\n"
+        "calls = []\n"
+        "def record(mod, name):\n"
+        "    real = getattr(mod, name)\n"
+        "    setattr(mod, name, lambda *a, **k: (calls.append(name), real(*a, **k))[1])\n"
+        "for mod, name in ((_build, 'build'), (_build, 'load_library'), (native, '_load')):\n"
+        "    record(mod, name)\n"
         f"mods = {MODULES!r}\n"
         "for m in mods: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
         "assert 'PIL' not in sys.modules, 'PIL imported eagerly'\n"
         "assert 'cv2' not in sys.modules, 'cv2 imported eagerly'\n"
+        "assert not calls, calls\n"
+        "assert sorted(fresh.rglob('*')) == [], sorted(fresh.rglob('*'))\n"
+        "fresh.rmdir()\n"
         "print('clean', len(mods))\n")
-    built_before = sorted((PORT / "_build").glob("*"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                          capture_output=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"clean {len(MODULES)}"
-    assert sorted((PORT / "_build").glob("*")) == built_before
 
 
 def test_light_module_import_stays_light():

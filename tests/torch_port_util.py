@@ -287,3 +287,195 @@ def assert_adam_update_follows(named, want: dict, before: dict, lr: float) -> No
         total += p.numel()
     assert moved > 0.99 * total, (moved, total)
     assert split <= 1e-3 * moved, (split, moved)
+
+
+
+def jax_two_view_step_reference(js, clips, waves, key, jcfg, image_size: int,
+                                loss_weight: float = 0.1) -> tuple[dict, dict, dict]:
+    """What the JAX package's fused two-view step computes on the GLOBAL
+    batch from `key` (`avtubes.train.steps.hardway_fused_train_step` with
+    its `hardway_train_step` loss): ({term: value}, {port name: gradient
+    before Adam}, {port name: running statistic after the step}, {port name:
+    parameter after the update}).  The image
+    tower's gradient is the jitted one; the audio tower's is the EAGER one
+    (`chained_eager_audio_update`: jax 0.9.0's jitted audio gradient is
+    wrong on the CPU).  `js.apply_fn` carries the head's configuration (its
+    `pool_block` for the per-device pool)."""
+    import optax
+
+    from avtubes.data.spectrogram import log_spectrogram
+    from avtubes.data.transforms import augment_train_batch
+    from avtubes.losses import consistency_l2, hardway_loss, propagation_loss
+    from avtubes.models.hardway import hardway_head
+    from avtubes.train.steps import _advance_audio_stats
+
+    b, t = clips.shape[:2]
+    spec = jax.jit(lambda w: log_spectrogram(w, jcfg)[..., None])(waves)
+    v1, v2 = jax.jit(augment_train_batch, static_argnums=(2, 3))(key, clips, image_size,
+                                                                 "random")
+    f1, f2 = (v.reshape(b * t, *v.shape[2:]) for v in (v1, v2))
+    hardway = js.apply_fn.__self__.hardway
+
+    def terms(out, out2):
+        hw = hardway_loss(out.logits) * loss_weight
+        aug = hardway_loss(out2.logits) * loss_weight
+        l2 = consistency_l2(out.weighted_map, out2.weighted_map) * (100.0 - loss_weight)
+        att1 = out.weighted_map.reshape(b, t, *out.weighted_map.shape[1:])
+        att2 = out2.weighted_map.reshape(b, t, *out2.weighted_map.shape[1:])
+        prop = propagation_loss(att1) + propagation_loss(att2)
+        return {"loss": (hw + aug) / 2.0 + l2 + prop, "hardway_loss": hw, "aug_loss": aug,
+                "l2_loss": l2, "consistency_loss": prop}
+
+    def loss_fn(params, f1, f2, spec):
+        (out, out2), mut = js.apply_fn({"params": params, "batch_stats": js.batch_stats},
+                                       f1, f2, spec, t, train=True, mutable=["batch_stats"],
+                                       method="two_view_forward")
+        m = terms(out, out2)
+        return m["loss"], (mut["batch_stats"], m)
+
+    (_, (new_stats, metrics)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        js.params, f1, f2, spec)
+
+    def encode_image(frames):
+        return js.apply_fn({"params": js.params, "batch_stats": js.batch_stats}, frames,
+                           train=True, mutable=["batch_stats"], method="encode_image")[0]
+
+    img1, img2 = (jax.jit(encode_image)(f) for f in (f1, f2))
+
+    def loss_of_audio_features(feats, img1, img2):
+        aud = jnp.repeat(feats, t, axis=0)
+        return terms(hardway_head(img1, aud, hardway), hardway_head(img2, aud, hardway))["loss"]
+
+    aud_grads, aud_updated = chained_eager_audio_update(js, spec, loss_of_audio_features,
+                                                        avenet_from_flax, img1, img2)
+    stats = _advance_audio_stats(js.batch_stats, new_stats)
+    converted = avenet_from_flax(jax.device_get({"params": grads, "batch_stats": stats}))
+    img_names = [k for k in converted if k.startswith("imgnet.")
+                 and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+    running = {k: v for k, v in converted.items() if "running" in k}
+    # the image tower after one update of the JAX optimizer (tensor by
+    # tensor, as `audio_adam_update` makes the audio tower's)
+    img = js.params["imgnet"]
+    updates, _ = jax.jit(js.tx.update)(grads["imgnet"], js.tx.init(img), img)
+    new = avenet_from_flax(jax.device_get({"params": {**js.params,
+                                                      "imgnet": optax.apply_updates(img, updates)},
+                                           "batch_stats": stats}))
+    return ({k: float(v) for k, v in metrics.items()},
+            {**{k: converted[k] for k in img_names}, **aud_grads}, running,
+            {**{k: new[k] for k in img_names}, **aud_updated})
+
+
+# ------------------------------------------ the flagship step across gloo ranks
+
+#: the step across ranks: 4 clips of 2 frames at 64x64, 2 clips a rank
+DDP_CLIPS, DDP_T = 4, 2
+
+
+def ddp_step_results(pool: str, tmp_dir) -> dict:
+    """Everything the tests of the flagship step across ranks compare, for
+    one `--negative_pool`, from `jax_state(0)`'s weights and one numpy-made
+    batch (`torch_port_ranks.job_step`): two gloo ranks' step in float32
+    (plain and `--remat`) and in float64, a one-rank group's float64 step on
+    the whole batch, and the JAX package's float32 step on the global batch
+    (the per-device pool: the JAX trainer's `pool_block`, the frames of one
+    rank)."""
+    import dataclasses
+
+    from avtubes.core.config import ExperimentConfig as JaxExperimentConfig
+    from torch_port_ranks import start_ranks
+
+    jcfg, tcfg = spec_cfgs()
+    block = DDP_CLIPS // 2 * DDP_T if pool == "device" else 0
+    from avtubes.train.state import make_optimizer
+
+    js = jax_state(0)
+    # the JAX package's optimizer at the port's rate, 1e-4, where Adam's
+    # eps-sized first updates are small (ROADMAP Queue 3)
+    js = js.replace(apply_fn=JaxAVENet(hardway=dataclasses.replace(
+        JaxExperimentConfig().hardway, pool_block=block)).apply,
+        tx=make_optimizer(dataclasses.replace(JaxExperimentConfig().optim,
+                                              learning_rate=1e-4), 4))
+    rng = np.random.RandomState(3)
+    clips = rng.randint(0, 256, (DDP_CLIPS, DDP_T, IMG, IMG, 3), dtype=np.uint8)
+    waves = np.clip(rng.randn(DDP_CLIPS, tcfg.num_samples) * 0.2, -1, 1).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    draws = augment_draws_from_jax_key(key, DDP_CLIPS, IMG, IMG, "random")
+    payload = {"weights": avenet_from_flax(numpy_variables(js)),
+               "clips": torch.from_numpy(clips), "waves": torch.from_numpy(waves),
+               "pool_block": block,
+               "draws": {f.name: getattr(draws, f.name) for f in dataclasses.fields(draws)},
+               "spec": {"samplerate": tcfg.samplerate, "seconds": tcfg.seconds},
+               "image_size": IMG, "lr": 1e-4,
+               "cases": [(pool, remat, dtype) for dtype in ("float32", "float64")
+                         for remat in (False, True)]}
+    # both groups of ranks run while this process computes the JAX step
+    world2 = start_ranks("step", payload, tmp_dir / "world2")
+    world1 = start_ranks("step", {**payload, "cases": [(pool, remat, "float64")
+                                                       for remat in (False, True)]},
+                         tmp_dir / "world1", world=1)
+    reference = jax_two_view_step_reference(js, jnp.asarray(clips), jnp.asarray(waves), key,
+                                            jcfg, IMG)
+    return {"world2": world2(), "world1": world1()[0], "jax": reference,
+            "before": payload["weights"]}
+
+
+def gradient_errors(got: dict, want: dict) -> dict[str, float]:
+    """max |got - want| / max |want| of every tensor of `want`."""
+    return {k: float((got[k].double() - v.double()).abs().max() / v.double().abs().max())
+            for k, v in want.items()}
+
+
+def check_world2_step_against_world1(results: dict, pool: str, remat: bool) -> None:
+    """A world-2 step is the world-1 step on the concatenated batch (a
+    one-rank group), both in float64, where float32 noise decides no ReLU:
+    the loss within 1e-5 relative and each term within 1e-4, every gradient
+    before Adam within 1e-4 of its tensor's largest entry, the running
+    statistics within 1e-5; and both ranks hold the same update and
+    statistics, in float64 and in float32."""
+    case = (pool, remat, "float64")
+    r0 = results["world2"][0][case]
+    w1 = results["world1"][case]
+    for k, v in w1["metrics"].items():
+        tol = 1e-5 if k == "loss" else 1e-4
+        assert abs(r0["metrics"][k] - v) <= tol * abs(v), (k, r0["metrics"][k], v)
+    for part, tol in (("grads", 1e-4), ("stats", 1e-5)):
+        errs = gradient_errors(r0[part], {k: v for k, v in w1[part].items()
+                                          if v.is_floating_point()})
+        assert max(errs.values()) <= tol, (part, max(errs.items(), key=lambda kv: kv[1]))
+    for dtype in ("float64", "float32"):
+        a, b = (r[(pool, remat, dtype)] for r in results["world2"])
+        for part in ("params", "stats", "grads"):
+            assert all(torch.equal(v, b[part][k]) for k, v in a[part].items()), (dtype, part)
+        assert a["metrics"] == b["metrics"]
+
+
+def check_world2_step_against_jax(results: dict, pool: str, remat: bool) -> None:
+    """A world-2 step is the JAX package's step on the global batch.  The
+    float32 step, as the trainer runs it: the loss within 1e-5 relative,
+    each term within 1e-4, the running statistics within 1e-5.  Its
+    gradients: the float64 step's audio tower within 1e-4 of the EAGER JAX
+    gradient's largest entry, and its image tower's Adam update the jitted
+    JAX step's (`assert_adam_update_follows`: Adam's first update is
+    lr·sign(g)).  Float32 gradients are not compared here: at these sizes a
+    BatchNorm channel holds 64 values a rank, and a pre-activation within
+    float32 noise of 0 flips a ReLU in one evaluation and not in another
+    (between the float32 and float64 world-2 steps that moves a few
+    tensors' gradients by percents of their largest entry; the JAX
+    package's jitted image gradient parts from float64 the same way)."""
+    got = results["world2"][0][(pool, remat, "float32")]
+    exact = results["world2"][0][(pool, remat, "float64")]
+    metrics, grads, stats, updated = results["jax"]
+    for k, v in metrics.items():
+        tol = 1e-5 if k == "loss" else 1e-4
+        assert abs(got["metrics"][k] - v) <= tol * abs(v), (k, got["metrics"][k], v)
+    errs = gradient_errors(got["stats"], stats)
+    assert max(errs.values()) <= 1e-5, max(errs.items(), key=lambda kv: kv[1])
+    errs = gradient_errors(exact["grads"], {k: v for k, v in grads.items()
+                                            if k.startswith("audnet.")})
+    assert max(errs.values()) <= 1e-4, max(errs.items(), key=lambda kv: kv[1])
+    names = [k for k in updated if k.startswith("imgnet.")]
+    assert_adam_update_follows(((k, exact["params"][k].float()) for k in names),
+                               {k: updated[k] for k in names}, results["before"], 1e-4)
+    for r in (got, exact):
+        assert int(r["stats"]["imgnet.bn1.num_batches_tracked"]) == 2
+        assert int(r["stats"]["audnet.bn1.num_batches_tracked"]) == 2
