@@ -22,17 +22,26 @@ auto-loads.
 Both run on the card (`--device cuda`, the default, raises without one;
 `--device cpu` must be asked for), TF32 off.  Prints `final: {...}`, the
 last step's metrics.
+
+More than one process, one card each (`core/distributed.py`; NCCL, or gloo
+with `--device cpu`), as under the JAX package's data mesh: `--batch_size`
+is the GLOBAL batch (the flagship's `cli/train_hardway` takes it per
+process), each rank holding its contiguous rows; a world that does not
+divide it exits, naming the largest divisor that would:
+
+    torchrun --nproc_per_node N -m avtubes_torch.cli.flow ...
+    AVTUBES_COORDINATOR=host0:1234 AVTUBES_NUM_PROCESSES=N \
+        AVTUBES_PROCESS_ID=i python -m avtubes_torch.cli.flow ...
 """
 
 import sys
 
 from avtubes_torch.core.config import ExperimentConfig
 from avtubes_torch.core.device import disable_tf32
-from avtubes_torch.core.distributed import require_single_process
+from avtubes_torch.core.distributed import check_world_divides, maybe_initialize, shutdown
 
 
 def main(argv=None):
-    require_single_process()
     argv = list(sys.argv[1:] if argv is None else argv)
     weight = 0.0
     if "--flow_loss_weight" in argv:
@@ -46,17 +55,24 @@ def main(argv=None):
     if not compute_flow:
         argv.remove("--no_flow")
     cfg = ExperimentConfig.from_args(argv)
-    disable_tf32()
-    if train_flow:
-        from avtubes_torch.train.flow_pretrain import run_pretrain
+    # a world that does not divide the global batch exits before any
+    # rendezvous, reading or writing
+    check_world_divides(cfg.optim.batch_size)
+    maybe_initialize(cfg.train.device)
+    try:
+        disable_tf32()
+        if train_flow:
+            from avtubes_torch.train.flow_pretrain import run_pretrain
 
-        metrics = run_pretrain(cfg, steps_cap=cfg.train.steps_cap)
-    else:
-        from avtubes_torch.train.flow import run
+            metrics = run_pretrain(cfg, steps_cap=cfg.train.steps_cap)
+        else:
+            from avtubes_torch.train.flow import run
 
-        metrics = run(cfg, steps_cap=cfg.train.steps_cap, flow_loss_weight=weight,
-                      compute_flow=compute_flow)
-    print("final:", metrics)
+            metrics = run(cfg, steps_cap=cfg.train.steps_cap, flow_loss_weight=weight,
+                          compute_flow=compute_flow)
+        print("final:", metrics)
+    finally:
+        shutdown()
     return metrics
 
 

@@ -19,10 +19,16 @@ with `tube` scores the 3D FullModel, any other AVENet, in `--compute_dtype`
 (bfloat16 by default).  The tag is taken literally, as the JAX package
 takes it: the 1-frame trainer writes `hardway1frm_ep<N>`.
 
-It runs on one card (`--device cuda`, the default, raises without one;
+It runs on the card (`--device cuda`, the default, raises without one;
 `--device cpu` must be asked for), K1 and K2 once a batch (K2 twice with
 `--use_activation`).  The JAX package shards the eval batches over a mesh of
-chips; one card needs none, so there is no mesh here.
+chips; here, across processes (`torchrun --nproc_per_node N -m
+avtubes_torch.cli.test_quantitative ...`, or the AVTUBES_COORDINATOR trio;
+`core/distributed.py`), every rank scores its rows of each batch, padded to
+a multiple of the world (`train/evaluate.py::evaluate_hardway`, `sharded`),
+and the primary gathers the masks, scores them in order and prints.
+`--use_activation` runs on the primary alone, as the JAX package does not
+shard it either.
 """
 
 import sys
@@ -31,7 +37,14 @@ import numpy as np
 import torch
 
 from avtubes_torch.core.config import ExperimentConfig
-from avtubes_torch.core.device import disable_tf32, resolve_device
+from avtubes_torch.core.device import disable_tf32
+from avtubes_torch.core.distributed import (
+    barrier,
+    is_primary,
+    local_device,
+    maybe_initialize,
+    shutdown,
+)
 from avtubes_torch.data.index import load_split
 from avtubes_torch.data.pipeline import (
     BatchLoader,
@@ -60,13 +73,23 @@ def main(argv=None):
         tag = argv[i + 1]
         del argv[i:i + 2]
     cfg = ExperimentConfig.from_args(argv)
-    disable_tf32()
+    maybe_initialize(cfg.train.device)
+    try:
+        disable_tf32()
+        return _evaluate(cfg, tag, use_activation)
+    finally:
+        shutdown()
+
+
+def _evaluate(cfg: ExperimentConfig, tag: str, use_activation: bool) -> dict:
+    """The evaluation of `main`; the primary's metrics (printed), an empty
+    dict on the other ranks."""
     d = cfg.data
     spec_cfg = SpectrogramConfig(samplerate=d.samplerate, seconds=d.audio_seconds)
     model_kind = "3d" if tag.startswith("tube") else "2d"
     if model_kind == "3d" and use_activation:
         raise ValueError("--use_activation is a 2D (AVENet) predictor")
-    state, _ = restore_for_tag(cfg, tag, resolve_device(cfg.train.device),
+    state, _ = restore_for_tag(cfg, tag, local_device(cfg.train.device),
                                missing="evaluating a random-init model")
 
     if d.synthetic:
@@ -82,11 +105,20 @@ def main(argv=None):
                                      num_workers=d.n_threads)
     evaluated_ids: list = []
     if use_activation:
-        metrics = _evaluate_with_activation(state.model, loader, spec_cfg, gt_lookup,
-                                            evaluated_ids=evaluated_ids)
+        # the JAX package does not shard this predictor either: the primary
+        # alone scores it, while the others wait
+        metrics = {}
+        if is_primary():
+            metrics = _evaluate_with_activation(state.model, loader, spec_cfg, gt_lookup,
+                                                evaluated_ids=evaluated_ids)
+        barrier("avtubes_test_quantitative_activation")
     else:
+        # every rank scores its rows of each batch, the primary gathers
         metrics = evaluate_hardway(state.model, loader, d, spec_cfg, gt_lookup,
-                                   model_kind=model_kind, evaluated_ids=evaluated_ids)
+                                   model_kind=model_kind, evaluated_ids=evaluated_ids,
+                                   sharded=True)
+    if not is_primary():
+        return {}
     metrics.update(_gaussian_column(evaluated_ids, gt_lookup))
     print(f"Hardway Test cIoU  {metrics['hardway_ciou']}")
     print(f"Hardway Test auc   {metrics['hardway_auc']}")

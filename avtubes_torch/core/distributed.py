@@ -1,4 +1,4 @@
-"""Multi-process (one process per card) wiring of the flagship trainer.
+"""Multi-process (one process per card) wiring of the trainers.
 
 Counterpart of `avtubes/core/distributed.py` and of the job of
 `avtubes/core/mesh.py`.  A JAX process with one chip is one rank here with
@@ -27,6 +27,19 @@ a CUDA run never takes gloo, and a CUDA run without a card raises.  Every
 
 `host_local_state` has no counterpart: the parameters of a rank are local
 tensors, which the primary evaluates and saves without a collective.
+
+Two ways to split a batch over the ranks.  The flagship trainer's
+`--batch_size` is per rank, as in the JAX package's multi-process path: each
+rank reads `ids[rank::world]` (`data_shard`) and runs the agreed number of
+steps (`agreed_steps_per_epoch`).  The 1-frame, 3D tube, consistency and
+flow-pretrain trainers keep the JAX package's single-process data mesh
+instead: `--batch_size` is the GLOBAL batch, which `make_data_mesh` shards in
+contiguous blocks, so rank r holds rows `rows_of(B)` = [r·B/n, (r+1)·B/n) of
+every global batch, read by the rows loader (`data/pipeline.py::BatchLoader`
+with `rows=`), whose agreement on decode failures runs on a gloo group of its
+own (`loader_all_gather`).  A world that does not divide B is refused
+(`check_world_divides`): a process group cannot drop ranks as the mesh drops
+devices.
 """
 
 from __future__ import annotations
@@ -47,11 +60,12 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 #: may, so this wait runs on a gloo group of its own (`monitored_barrier`)
 BARRIER_TIMEOUT = datetime.timedelta(hours=2)
 
-_SINGLE_PROCESS_ONLY = ("multi-host training is wired for avtubes.cli.train_hardway "
-                        "only; run this trainer single-process")
-
 # the gloo group `barrier` waits on; created with the default group
 _host_group: dist.ProcessGroup | None = None
+# the gloo group of the rows loader's agreement (`loader_all_gather`), which
+# runs on the loader's thread: never the group that the main thread's
+# `barrier` or collectives use, so the two never interleave on one group
+_loader_group: dist.ProcessGroup | None = None
 
 
 def _announced() -> tuple[str, int, int, int] | None:
@@ -90,7 +104,7 @@ def maybe_initialize(device: str | torch.device = "cuda",
     asks for one, on the backend `device` maps to; on a card the rank's
     device becomes `cuda:LOCAL_RANK`.  Returns True when running with more
     than one process.  Safe to call more than once."""
-    global _host_group
+    global _host_group, _loader_group
     if dist.is_initialized():
         return world_size() > 1
     spec = _announced()
@@ -102,17 +116,19 @@ def maybe_initialize(device: str | torch.device = "cuda",
         torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method, world_size=world,
                             rank=rank, timeout=timeout)
+    # every rank makes the groups in this same order
     _host_group = (dist.group.WORLD if backend == "gloo"
                    else dist.new_group(backend="gloo", timeout=BARRIER_TIMEOUT))
+    _loader_group = dist.new_group(backend="gloo", timeout=timeout)
     return world > 1
 
 
 def shutdown() -> None:
     """Destroy the process groups `maybe_initialize` made (no-op without)."""
-    global _host_group
+    global _host_group, _loader_group
     if dist.is_initialized():
         dist.destroy_process_group()
-    _host_group = None
+    _host_group = _loader_group = None
 
 
 def world_size() -> int:
@@ -144,13 +160,50 @@ def data_shard() -> tuple[int, int] | None:
     return (rank(), world_size()) if world_size() > 1 else None
 
 
-def require_single_process() -> None:
-    """Refuse a run of more than one process, with the JAX package's
-    message: only the flagship trainer shards its dataset per process, and
-    any other trainer run multi-process would train on duplicated data.
-    Checked from the environment, before any rendezvous."""
-    if announced_world_size() > 1 or world_size() > 1:
-        raise SystemExit(_SINGLE_PROCESS_ONLY)
+def _largest_divisor(batch_size: int, world: int) -> int:
+    """The most devices `make_data_mesh` would take for `batch_size`: the
+    largest divisor of it that is <= world."""
+    n = max(1, world)
+    while n > 1 and batch_size % n:
+        n -= 1
+    return n
+
+
+def _exit_unless_divides(batch_size: int, world: int) -> None:
+    if batch_size % world:
+        raise SystemExit(
+            f"--batch_size {batch_size} is this trainer's GLOBAL batch and {world} "
+            f"processes do not divide it; run {_largest_divisor(batch_size, world)} "
+            f"processes (the largest divisor of {batch_size} that is <= {world}, the "
+            "devices the JAX package's make_data_mesh would use) or change --batch_size")
+
+
+def check_world_divides(batch_size: int) -> None:
+    """Refuse, with `SystemExit` naming the divisor, a world (as the
+    environment announces it, before any rendezvous) that does not divide
+    the global `batch_size` of a trainer that splits each batch in rows."""
+    _exit_unless_divides(batch_size, max(announced_world_size(), world_size()))
+
+
+def rows_of(global_b: int) -> slice:
+    """This rank's contiguous rows [r·B/n, (r+1)·B/n) of a global batch of
+    `global_b` rows (every row without a group); `SystemExit` where the
+    world does not divide it."""
+    world = world_size()
+    _exit_unless_divides(global_b, world)
+    per = global_b // world
+    return slice(rank() * per, (rank() + 1) * per)
+
+
+def loader_all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's CPU tensor `t` (the same shape on each), concatenated in
+    rank order along axis 0, on the rows loader's own gloo group; `t`
+    itself without a group."""
+    if not dist.is_initialized() or world_size() == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(world_size())]
+    dist.all_gather(parts, t.contiguous(), group=_loader_group)
+    return torch.cat(parts)
 
 
 def check_group_matches_environment() -> None:
@@ -201,6 +254,17 @@ def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
         n = t.numel()
         t.detach().copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+def gather_rows_to_primary(x: torch.Tensor) -> torch.Tensor | None:
+    """Every rank's `x` (the same shape on each) concatenated in rank order
+    along axis 0 on the primary, None on the others (one `gather`); `x`
+    itself without a group."""
+    if not dist.is_initialized():
+        return x
+    parts = [torch.empty_like(x) for _ in range(world_size())] if is_primary() else None
+    dist.gather(x.contiguous(), parts, dst=0)
+    return torch.cat(parts) if is_primary() else None
 
 
 class _AllGatherRows(torch.autograd.Function):

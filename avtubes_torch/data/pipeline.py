@@ -34,6 +34,7 @@ from __future__ import annotations
 import queue
 import threading
 from collections.abc import Iterator
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
@@ -240,16 +241,28 @@ def _collate(samples: list[dict[str, Any]]) -> dict[str, Any]:
 
 
 class BatchLoader:
-    """Thread-pool batched loader with skip-and-count error handling."""
+    """Thread-pool batched loader with skip-and-count error handling.
+
+    `rows=(rank, world)` is the rows mode of the trainers whose
+    `--batch_size` is the global batch (`core/distributed.py`): every rank
+    walks the same shuffled order, and of each global batch of
+    `batch_size` a rank decodes and yields only its contiguous block of
+    `batch_size / world` rows (`_rows_epoch`).  The concatenated rows of
+    the ranks are the world-1 loader's batches, bit for bit."""
 
     def __init__(self, source, batch_size: int, num_workers: int = 4,
-                 shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                 rows: tuple[int, int] | None = None):
         self.source = source
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.rows = rows if rows is not None and rows[1] > 1 else None
+        if self.rows is not None and (batch_size % self.rows[1] or not drop_last):
+            raise ValueError(f"the rows mode needs drop_last and a world ({self.rows[1]}) "
+                             f"that divides the batch ({batch_size})")
         self.skipped = 0            # total across all epochs
         self.epoch_skipped = 0      # last-started epoch only
 
@@ -257,11 +270,37 @@ class BatchLoader:
         n = len(self.source)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def epoch(self, epoch: int = 0) -> Iterator[dict[str, Any]]:
-        self.epoch_skipped = 0
+    def _order(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.source))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
+        return order
+
+    def _load_at(self, epoch: int, pos: int, idx: int):
+        """Sample `idx` at position `pos` of the epoch, or the exception its
+        load raised.  The per-position rng makes the stream the same for
+        any worker count and on any rank."""
+        rng = np.random.RandomState((self.seed + epoch) * 1_000_003 + pos)
+        try:
+            return self.source.load(idx, rng)
+        except BaseException as e:  # noqa: BLE001 — the caller sorts skips from bugs
+            return e
+
+    def _skip(self, epoch: int, err: SkippedSampleError) -> None:
+        self.skipped += 1
+        self.epoch_skipped += 1
+        print(f"[loader] epoch {epoch}: skipping sample: {err}")
+
+    def epoch(self, epoch: int = 0, limit: int = 0) -> Iterator[dict[str, Any]]:
+        """The epoch's batches, at most `limit` of them (0: all).  A loader
+        in the rows mode runs one collective a round, so a consumer that
+        stops early must say where, here, for every rank's loader to stop
+        at the same round."""
+        self.epoch_skipped = 0
+        if self.rows is not None:
+            yield from self._rows_epoch(epoch, limit)
+            return
+        order = self._order(epoch)
 
         work: queue.Queue = queue.Queue()
         done: queue.Queue = queue.Queue()
@@ -276,16 +315,10 @@ class BatchLoader:
                 except queue.Empty:
                     done.put(stop)
                     return
-                # per-sample-position rng: the stream is the same for any
-                # worker count
-                rng = np.random.RandomState((self.seed + epoch) * 1_000_003 + pos)
-                try:
-                    done.put((pos, self.source.load(idx, rng)))
-                except BaseException as e:  # noqa: BLE001
-                    # a skip is reported and counted by the main loop;
-                    # anything else is a bug it raises — a worker dying
-                    # without posting would leave the loop blocked
-                    done.put((pos, e))
+                # a skip is reported and counted by the main loop; anything
+                # else is a bug it raises — a worker dying without posting
+                # would leave the loop blocked
+                done.put((pos, self._load_at(epoch, pos, idx)))
 
         threads = [threading.Thread(target=worker, daemon=True)
                    for _ in range(self.num_workers)]
@@ -296,6 +329,7 @@ class BatchLoader:
         buf: list[dict[str, Any]] = []
         pending: dict[int, Any] = {}
         next_pos = 0
+        yielded = 0
         total = len(order)
         while finished < self.num_workers or pending or next_pos < total:
             item = done.get()
@@ -310,9 +344,7 @@ class BatchLoader:
                 s = pending.pop(next_pos)
                 next_pos += 1
                 if isinstance(s, SkippedSampleError):
-                    self.skipped += 1
-                    self.epoch_skipped += 1
-                    print(f"[loader] epoch {epoch}: skipping sample: {s}")
+                    self._skip(epoch, s)
                 elif isinstance(s, BaseException):
                     raise s
                 else:
@@ -320,12 +352,84 @@ class BatchLoader:
                 if len(buf) == self.batch_size:
                     yield _collate(buf)
                     buf = []
+                    yielded += 1
+                    if limit and yielded >= limit:
+                        return
             if next_pos >= total and not pending:
                 break
         for th in threads:
             th.join(timeout=5)
         if buf and not self.drop_last:
             yield _collate(buf)
+
+    def _rows_epoch(self, epoch: int, limit: int) -> Iterator[dict[str, Any]]:
+        """The rows mode.  A round takes the candidates of one global batch
+        (the good positions known so far, then the next positions of the
+        order, B in all); each rank decodes the candidates of its block and
+        the ranks all-gather the B outcomes (`loader_all_gather`: 0 good,
+        1 skipped, 2 failed otherwise).  Without a skip the rank yields its
+        rows.  With one, every rank knows the good positions: the next
+        positions are appended until B are good, and a rank decodes only
+        those of its new block it has not decoded itself.  The next round's
+        block is decoded ahead, as if nothing were skipped.  The positions
+        after the last full batch are decoded and agreed too, so
+        `epoch_skipped` counts what the world-1 loader counts."""
+        from avtubes_torch.core.distributed import loader_all_gather
+
+        me, world = self.rows
+        b = self.batch_size
+        per = b // world
+        order = self._order(epoch)
+        total = len(order)
+        pool = ThreadPoolExecutor(self.num_workers)
+        decoded: dict[int, Future] = {}
+
+        def fetch(positions):
+            for p in positions:
+                if p not in decoded:
+                    decoded[p] = pool.submit(self._load_at, epoch, p, int(order[p]))
+            return [decoded[p] for p in positions]
+
+        cursor = 0      # the first position not yet a candidate
+        yielded = 0
+        try:
+            while cursor < total and not (limit and yielded >= limit):
+                good: list[int] = []
+                while True:
+                    fresh = min(total, cursor + b - len(good))
+                    cand, cursor = good + list(range(cursor, fresh)), fresh
+                    mine = cand[me * per:(me + 1) * per]
+                    futures = fetch(mine)
+                    if not (limit and yielded + 1 >= limit):
+                        fetch(range(cursor + me * per, min(total, cursor + (me + 1) * per)))
+                    samples = [f.result() for f in futures]
+                    flags = torch.zeros(per, dtype=torch.int8)
+                    for i, s in enumerate(samples):
+                        if isinstance(s, BaseException):
+                            flags[i] = 1 if isinstance(s, SkippedSampleError) else 2
+                    every = loader_all_gather(flags)[:len(cand)].tolist()
+                    for s in samples:
+                        if isinstance(s, BaseException) and not isinstance(s, SkippedSampleError):
+                            raise s
+                    if 2 in every:
+                        raise RuntimeError("the rows loader of another rank failed")
+                    for s in samples:
+                        if isinstance(s, SkippedSampleError):
+                            self._skip(epoch, s)
+                    others = sum(every) - int(flags.sum())
+                    self.skipped += others
+                    self.epoch_skipped += others
+                    good = [p for p, f in zip(cand, every) if not f]
+                    if len(good) == b or cursor >= total:
+                        break
+                for p in cand:
+                    decoded.pop(p, None)
+                if len(good) < b:
+                    return
+                yield _collate(samples)
+                yielded += 1
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 class BatchedHardwayLoader:

@@ -63,11 +63,18 @@ class AVENet(nn.Module):
 
     def forward(self, image: torch.Tensor, audio: torch.Tensor,
                 aud_all: torch.Tensor | None = None,
-                pool_offset: int | torch.Tensor = 0) -> HardwayOutput:
-        # pool_offset: index of this batch's first own-pair column within
-        # aud_all (shard_index * B for an all-gathered pool)
+                pool_offset: int | torch.Tensor = 0,
+                negative_pool: str | None = None) -> HardwayOutput:
+        """`negative_pool` (a training step's switch): None is the head on
+        this batch (or against `aud_all`, whose own-pair columns start at
+        `pool_offset`); 'global' or 'device' is the head of that pool
+        across the ranks (`parallel/__init__.py`), which gathers the keys of
+        every rank under a process group and is `hardway_head` without
+        one.  Evaluation passes None: it never gathers."""
         img = self.encode_image(image)
         aud = self.encode_audio(audio)
+        if negative_pool is not None:
+            return pool_head(negative_pool)(img, aud, self.hardway)
         return hardway_head(img, aud, self.hardway, aud_all=aud_all,
                             pool_offset=pool_offset)
 
@@ -79,19 +86,23 @@ class AVENet(nn.Module):
         return hardway_head(img_feats, aud_feats, self.hardway,
                             aud_all=aud_all, pool_offset=pool_offset)
 
-    def forward_shared_audio(self, frames: torch.Tensor,
-                             audio: torch.Tensor) -> HardwayOutput:
+    def forward_shared_audio(self, frames: torch.Tensor, audio: torch.Tensor,
+                             negative_pool: str | None = None) -> HardwayOutput:
         """Forward with one audio clip shared by a group of frames: encode
         the B unique spectrograms once, repeat the pooled features over the
         frames-per-clip factor.  Used by per-frame eval, where every frame
-        of a video is scored against the same clip audio.
+        of a video is scored against the same clip audio, and by the
+        consistency trainer.  `negative_pool` as in `forward`: across
+        ranks the keys are the repeated features, so a rank's own pairs
+        start at rank · B_local · K.
 
         frames: (B*K, H, W, 3); audio: (B, F, T, 1) with K = frames/clip.
         """
         aud = self.encode_audio(audio)                                # (B, 512)
         aud = aud.repeat_interleave(frames.shape[0] // aud.shape[0], dim=0)
         img = self.encode_image(frames)
-        return hardway_head(img, aud, self.hardway)
+        head = hardway_head if negative_pool is None else pool_head(negative_pool)
+        return head(img, aud, self.hardway)
 
     def two_view_forward(self, frames: torch.Tensor, augmented: torch.Tensor,
                          audio: torch.Tensor, t: int, negative_pool: str = "global"

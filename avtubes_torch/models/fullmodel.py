@@ -27,6 +27,7 @@ from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_h
 from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 from avtubes_torch.models.resnet3d import ResNet3D
+from avtubes_torch.parallel import pool_head
 
 
 class FullModel(nn.Module):
@@ -67,9 +68,15 @@ class FullModel(nn.Module):
         return hardway_head(vid, aud, self.hardway, aud_all=aud_all,
                             pool_offset=pool_offset)
 
-    def forward_shared_audio(self, audio: torch.Tensor,
-                             video: torch.Tensor) -> HardwayOutput:
-        """audio: (B, F, Tt, 1), one spectrogram a clip; video (B, T, H, W, 3)."""
+    def forward_shared_audio(self, audio: torch.Tensor, video: torch.Tensor,
+                             negative_pool: str | None = None) -> HardwayOutput:
+        """audio: (B, F, Tt, 1), one spectrogram a clip; video (B, T, H, W, 3).
+        `negative_pool` (a training step's switch): None is the head on
+        this batch; 'global' or 'device' the head of that pool across the
+        ranks (`parallel/__init__.py`): under a process group every frame
+        against the audio keys of every rank's frames, a rank's own pairs
+        at offset rank · B_local · T.  Evaluation passes None."""
         vid, t = self._frames(video)
         aud = self.encode_audio(audio).repeat_interleave(t, dim=0)   # (B*T, 512)
-        return hardway_head(vid, aud, self.hardway)
+        head = hardway_head if negative_pool is None else pool_head(negative_pool)
+        return head(vid, aud, self.hardway)

@@ -24,7 +24,9 @@ with the global n/(n-1).  Here each rank holds its slice of the batch, so
 
 It runs its collectives whenever a process group is up, a one-rank group
 included.  Without a group, or in eval mode, it is `nn.BatchNorm2d`
-itself.  It subclasses `nn.BatchNorm2d`, so `state_dict` keys, the weight
+itself.  `BatchNorm3d` is the same over (N, C, T, H, W) activations, for
+the 3D tube model's `ResNet3D`.  Each subclasses its `nn` class, so
+`state_dict` keys, the weight
 converters, the `isinstance` checks of the steps and `models/remat.py`'s
 frozen recomputation (momentum 0, `num_batches_tracked` detached) are
 unchanged.  torch's `nn.SyncBatchNorm` is not used: it raises on CPU
@@ -83,9 +85,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
         return dx.to(x.dtype), grad_weight, grad_bias, None
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` whose training statistics are the global batch's
-    when a process group is up (the module docstring)."""
+class _GlobalStats:
+    """The training forward of a BatchNorm over the global batch; mixed in
+    before an `nn.BatchNorm2d` / `nn.BatchNorm3d`, whose own forward runs
+    without a group and in eval mode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and dist.is_available() and dist.is_initialized()):
@@ -103,3 +106,16 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1.0 - factor).add_(mean, alpha=factor)
                 self.running_var.mul_(1.0 - factor).add_(unbiased, alpha=factor)
         return y
+
+
+class BatchNorm2d(_GlobalStats, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose training statistics are the global batch's
+    when a process group is up (the module docstring)."""
+
+
+class BatchNorm3d(_GlobalStats, nn.BatchNorm3d):
+    """`nn.BatchNorm3d` whose training statistics are the global batch's
+    when a process group is up: the same `_GlobalBatchNorm`, which reduces
+    over every axis but C, so (N, C, T, H, W) takes the statistics of all
+    N·T·H·W values of a channel across the ranks, in either memory format
+    (`channels_last_3d` included)."""

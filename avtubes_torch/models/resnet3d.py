@@ -27,7 +27,9 @@ Layout: the interface is NDHWC like the JAX package, (B, T, H, W, 3) in and
 with `memory_format=channels_last_3d` (NDHWC strides), so the permutes at
 both ends are views.  Compute dtype as in `models/resnet2d.py`: the input
 is cast to it, each convolution casts its float32 weight per call, and
-`nn.BatchNorm3d` on that input keeps float32 weight, bias and statistics.
+BatchNorm on that input keeps float32 weight, bias and statistics: it is
+`models/norm.py::BatchNorm3d`, `nn.BatchNorm3d` whose training statistics
+are the global batch's whenever a process group is up.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from avtubes_torch.models.norm import BatchNorm3d
 from avtubes_torch.models.resnet2d import compute_dtype_of
 
 
@@ -54,8 +57,8 @@ def _conv(cin: int, cout: int, k: int, stride: tuple[int, int, int] = (1, 1, 1),
     return Conv3d(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
-def _bn(features: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(features, eps=1e-5, momentum=0.1)
+def _bn(features: int) -> BatchNorm3d:
+    return BatchNorm3d(features, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock3D(nn.Module):

@@ -28,6 +28,12 @@ import torch
 from torch import nn
 
 from avtubes_torch.core.config import DataConfig
+from avtubes_torch.core.distributed import (
+    gather_rows_to_primary,
+    is_primary,
+    rows_of,
+    world_size,
+)
 from avtubes_torch.data.spectrogram import SpectrogramConfig, log_spectrogram
 from avtubes_torch.data.transforms import normalize_imagenet
 from avtubes_torch.evaluation.gt import flickr_gt_from_xml, vggss_gt_from_bboxes
@@ -128,7 +134,8 @@ def _device_of(model: nn.Module) -> torch.device:
 def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
                      spec_cfg: SpectrogramConfig, gt_lookup, epoch: int = 0,
                      logger=None, record: int = 0, model_kind: str = "2d",
-                     evaluated_ids: list | None = None) -> dict[str, float]:
+                     evaluated_ids: list | None = None,
+                     sharded: bool = False) -> dict[str, float]:
     """Hard-way test: cIoU@0.5 + AUC over the loader's samples, on the
     model's device.  One K1 and one K2 launch a batch on the card; the last
     partial batch is padded to the steady-state shape.
@@ -136,19 +143,37 @@ def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
     record > 0 writes the overlay of the first `record` samples through
     `logger.log_image` as `<id>_hardway` (step = epoch).  evaluated_ids,
     when given, collects the id of every sample scored (the loader skips and
-    counts decode failures, so this can be a subset of the split)."""
+    counts decode failures, so this can be a subset of the split).
+
+    `sharded`, under a process group, is the JAX package's evaluation over
+    a data mesh: EVERY rank calls it with the same loader.  Each batch is
+    padded to a multiple of the world (`_pad_rows`, the divisor rule), each
+    rank runs K1, the towers and K2 on its contiguous rows, and the masks
+    are gathered to the primary, which drops the padding and scores them in
+    the loader's order; the primary returns the metrics (and fills
+    `evaluated_ids`), the others an empty dict.  Without a group, or not
+    `sharded`, every row runs here."""
     _check_kind(model_kind)
     device = _device_of(model)
+    world = world_size() if sharded else 1
+    primary = is_primary() or not sharded
     cious = []
     recorded = 0
     full_bsz = getattr(loader, "batch_size", 0)
     for batch in loader.epoch(epoch):
         n = batch["frame"].shape[0]
         pad_to = full_bsz if 0 < n < full_bsz else n
+        pad_to = -(-pad_to // world) * world
+        rows = rows_of(pad_to) if sharded else slice(0, pad_to)
         masks = _hardway_eval_masks(
-            model, torch.from_numpy(_pad_rows(batch["frame"], pad_to)).to(device),
-            torch.from_numpy(_pad_rows(batch["waveform"], pad_to)).to(device),
-            spec_cfg, model_kind=model_kind).cpu().numpy()[:n]
+            model, torch.from_numpy(_pad_rows(batch["frame"], pad_to)[rows]).to(device),
+            torch.from_numpy(_pad_rows(batch["waveform"], pad_to)[rows]).to(device),
+            spec_cfg, model_kind=model_kind)
+        if sharded:
+            masks = gather_rows_to_primary(masks)
+        if not primary:
+            continue
+        masks = masks.cpu().numpy()[:n]
         for i, vid in enumerate(batch["id"]):
             gt = gt_lookup(vid, None)
             cious.append(ciou_single(masks[i], gt, 0.5))
@@ -159,6 +184,8 @@ def evaluate_hardway(model: nn.Module, loader, data_cfg: DataConfig,
                                  overlay_heatmap(batch["frame"][i], masks[i], gt),
                                  step=epoch)
                 recorded += 1
+    if not primary:
+        return {}
     cious = np.asarray(cious)
     return {
         "hardway_ciou": float(np.mean(cious >= 0.5)),

@@ -31,9 +31,14 @@ volume's backward kernel never runs here.  An epoch is {train, checkpoint
 `.pth.tar` (e.g. one written by `cli/export_torch.py`) or resumes from the
 newest `flow_ep<N>`; the newest `flownet_ep<N>` of the pretrainer
 (`train/flow_pretrain.py`) in `--summaries_dir` is loaded into the flow net
-whenever there is one.  Single process, one device: the JAX package's mesh
-and replication are not needed; what is not ported raises through
+whenever there is one.  What is not ported raises through
 `train/hardway.py::check_supported`.
+
+Across processes (`core/distributed.py`) `--batch_size` is the GLOBAL batch
+of clips of the JAX package's data mesh, each rank holding its contiguous
+rows (so its frame pairs are the contiguous rows of the global B·(T−1)
+pairs); the primary alone logs and writes checkpoints, and a preemption
+signal is agreed at the epoch's end.
 """
 
 from __future__ import annotations
@@ -44,12 +49,17 @@ from avtubes_torch.core.checkpoint import (
     PreemptionGuard,
     latest_checkpoint,
     restore_checkpoint,
-    save_checkpoint,
 )
 from avtubes_torch.core.config import ExperimentConfig
-from avtubes_torch.core.device import resolve_device
+from avtubes_torch.core.distributed import (
+    check_group_matches_environment,
+    is_primary,
+    local_device,
+    preempted_anywhere,
+    rows_of,
+    world_size,
+)
 from avtubes_torch.core.reference_checkpoint import load_reference_checkpoint
-from avtubes_torch.data.pipeline import BatchLoader
 from avtubes_torch.data.spectrogram import SpectrogramConfig, log_spectrogram
 from avtubes_torch.data.transforms import augment_view1, denormalize_imagenet
 from avtubes_torch.losses.losses import hardway_loss
@@ -61,11 +71,13 @@ from avtubes_torch.train.hardway import (
     build_sources,
     check_supported,
     end_of_epoch_preempted,
+    rows_loader,
+    save_on_primary,
     train_epoch,
     warm_start_or_resume,
 )
 from avtubes_torch.train.state import TrainState, create_train_state
-from avtubes_torch.train.steps import _finish, _fold_time
+from avtubes_torch.train.steps import _average_over_ranks, _finish, _fold_time
 from avtubes_torch.utils.logging import MetricLogger
 
 TAG = "flow"
@@ -113,7 +125,7 @@ def flow_train_step(state: TrainState, flow_net: FlowNetLite | None, frames: tor
     model.train()
     flow = frame_pair_flow(flow_net, frames) if compute_flow else None
     state.optimizer.zero_grad(set_to_none=True)
-    out = model.forward_shared_audio(_fold_time(frames), spec)
+    out = model.forward_shared_audio(_fold_time(frames), spec, negative_pool="global")
     ce = hardway_loss(out.logits)
     if compute_flow:
         pos = out.pos.reshape(b, t, *out.pos.shape[1:])
@@ -123,9 +135,11 @@ def flow_train_step(state: TrainState, flow_net: FlowNetLite | None, frames: tor
         warp_l1 = torch.zeros((), device=ce.device)
     loss = ce + flow_loss_weight * warp_l1
     loss.backward()
+    metrics = {k: v.detach().clone() for k, v in (
+        ("loss", loss), ("hardway_loss", ce), ("warp_consistency", warp_l1))}
+    _average_over_ranks(model, metrics)
     state.apply_gradients()
-    return _finish(model, {"loss": loss, "hardway_loss": ce, "warp_consistency": warp_l1},
-                   watch)
+    return _finish(model, metrics, watch)
 
 
 def flow_fused_train_step(state: TrainState, flow_net: FlowNetLite | None,
@@ -165,42 +179,51 @@ def load_flow_net(cfg: ExperimentConfig, device: torch.device,
 def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = TAG,
         flow_loss_weight: float = 0.0, compute_flow: bool = True) -> dict:
     """Train and checkpoint on `cfg.train.device` (the card unless the CPU
-    is asked for).  Returns the last step's metrics."""
+    is asked for; across ranks the rank's own card).  Returns the last
+    step's metrics.  Across ranks `--batch_size` is the global batch of
+    clips, each rank stepping on its rows, with the view-1 flips of the
+    global batch drawn from one generator on every rank."""
     d, o = cfg.data, cfg.optim
     check_supported(cfg)
     if flow_loss_weight > 0 and not compute_flow:
         raise ValueError("flow_loss_weight > 0 requires compute_flow=True")
-    device = resolve_device(cfg.train.device)
+    check_group_matches_environment()
+    device = local_device(cfg.train.device)
+    # the same seed on every rank: the parameters start replicated
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(device)
     spec_cfg = SpectrogramConfig(samplerate=d.samplerate, seconds=d.audio_seconds)
-    train_src, _, _ = build_sources(cfg)
-    loader = BatchLoader(train_src, o.batch_size, num_workers=d.n_threads,
-                         shuffle=True, seed=cfg.train.seed)
+    train_src, _, _ = build_sources(cfg, shard_ids=False)
+    loader = rows_loader(cfg, train_src)
+    mine = rows_of(o.batch_size)
+    multiproc = world_size() > 1
     state = create_train_state(model, o, max(1, len(loader)))
     state, start_epoch = warm_start_or_resume(cfg, tag, state, load_reference_checkpoint)
     flow_net = load_flow_net(cfg, device, flow_loss_weight)
 
-    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
+    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag, enabled=is_primary())
     guard = PreemptionGuard()  # SIGTERM/SIGINT -> checkpoint + clean exit
     last: dict = {}
     watch = cfg.train.watch_every > 0  # wandb.watch parity (flow.py:124)
     for epoch in range(start_epoch, o.epochs):
-        # the epoch's view-1 flips, drawn on the host
+        # the epoch's view-1 flips, drawn on the host: the global batch's,
+        # from the same generator on every rank, each rank taking its rows
         gen = torch.Generator().manual_seed((cfg.train.seed + 4) * 1_000_003 + epoch)
 
         def step(batch: dict) -> dict:
-            clip = batch["clip"]
-            flip1 = torch.rand(clip.shape[0], generator=gen) < 0.5
-            return flow_fused_train_step(state, flow_net, clip, batch["waveform"], flip1,
-                                         spec_cfg, flow_loss_weight, watch, compute_flow)
+            flip1 = (torch.rand(o.batch_size, generator=gen) < 0.5)[mine]
+            return flow_fused_train_step(state, flow_net, batch["clip"], batch["waveform"],
+                                         flip1, spec_cfg, flow_loss_weight, watch,
+                                         compute_flow)
 
         metrics = train_epoch(state, loader, epoch, device, cfg, steps_cap, logger, guard,
                               step)
         if metrics:  # an epoch can yield zero batches (all skipped)
             last = metrics
-        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard):
+        guard.preempted = preempted_anywhere(guard.preempted, device)
+        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard,
+                                  epoch_complete=multiproc):
             break
-        save_checkpoint(cfg.train.summaries_dir, tag, epoch, state)
+        save_on_primary(cfg.train.summaries_dir, tag, epoch, state)
     logger.close()
     guard.restore()
     return last

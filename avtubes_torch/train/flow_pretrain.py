@@ -34,13 +34,22 @@ from avtubes_torch.core.checkpoint import (
     PreemptionGuard,
     latest_checkpoint,
     restore_checkpoint,
-    save_checkpoint,
 )
 from avtubes_torch.core.config import ExperimentConfig, OptimConfig
 from avtubes_torch.core.device import resolve_device
+from avtubes_torch.core.distributed import (
+    check_group_matches_environment,
+    is_primary,
+    local_device,
+    preempted_anywhere,
+    rows_of,
+    world_size,
+)
 from avtubes_torch.models.flownet import FlowNetLite
 from avtubes_torch.ops.warp import flow_warp
+from avtubes_torch.train.hardway import build_sources, rows_loader, save_on_primary
 from avtubes_torch.train.state import TrainState, create_train_state
+from avtubes_torch.train.steps import _average_over_ranks
 from avtubes_torch.utils.logging import MetricLogger
 
 FLOW_TAG = "flownet"
@@ -104,16 +113,26 @@ def flow_pretrain_step(state: TrainState, im1: torch.Tensor, im2: torch.Tensor,
                        ) -> dict[str, torch.Tensor]:
     """One unsupervised step on a batch of frame pairs in [0,1], (B,H,W,3),
     on the device of the model.  Updates `state` in place and returns the
-    metrics as zero-dimensional tensors (reading one waits for the device)."""
+    metrics as zero-dimensional tensors (reading one waits for the device).
+
+    Under a process group the pairs are the rank's rows of the global
+    batch, and the gradients and the metrics are averaged over the ranks in
+    one all-reduce after the backward.  The photometric term (a sum of
+    means over the pairs at each scale) and the smoothness term (means)
+    are means over equal-sized rank slices, so their mean over the ranks is
+    the global batch's.  FlowNetLite has no BatchNorm: the all-reduce is
+    the step's only collective."""
     state.optimizer.zero_grad(set_to_none=True)
     flow = state.model(im1, im2)
     photo = multiscale_photometric(im1, im2, flow)
     smooth = smoothness_loss(flow, image=im1, edge_alpha=edge_alpha)
     loss = photo + smooth_weight * smooth
     loss.backward()
+    metrics = {"loss": loss.detach().clone(), "photometric": photo.detach().clone(),
+               "smoothness": smooth.detach().clone()}
+    _average_over_ranks(state.model, metrics)
     state.apply_gradients()
-    return {"loss": loss.detach(), "photometric": photo.detach(),
-            "smoothness": smooth.detach()}
+    return metrics
 
 
 def create_flow_state(generator: torch.Generator | None = None,
@@ -221,14 +240,25 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
                  tag: str = FLOW_TAG, smooth_weight: float = 0.05,
                  learning_rate: float = 1e-4, impl: str = "kernel") -> dict:
     """Unsupervised FlowNetLite pretraining loop with checkpointing, on
-    `cfg.train.device`.
+    `cfg.train.device` (across ranks the rank's own card).
 
     Real data: consecutive-frame pairs from training clips.  Synthetic:
     translating patterns and random fields with known ground truth, logged
     as an EPE on a fixed held-out probe.
+
+    Across ranks `--batch_size` is the global batch, as in the JAX
+    package's data mesh: every rank makes the global batch's synthetic
+    pairs from the same generator and takes its rows, or reads its rows of
+    the global batch of clips (whose pairs are then its contiguous rows of
+    the global pairs).  The primary alone runs the EPE probe, logs and
+    writes checkpoints; a preemption signal is agreed at the epoch's end.
     """
     d, o = cfg.data, cfg.optim
-    device = resolve_device(cfg.train.device)
+    check_group_matches_environment()
+    device = local_device(cfg.train.device)
+    mine = rows_of(o.batch_size)
+    multiproc = world_size() > 1
+    # the same seed on every rank: the parameters start replicated
     state = create_flow_state(torch.Generator().manual_seed(cfg.train.seed + 11),
                               learning_rate, device=device, impl=impl)
 
@@ -240,20 +270,21 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
             state, start_epoch = restore_checkpoint(ckpt, state)
             start_epoch += 1
 
-    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
+    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag, enabled=is_primary())
     guard = PreemptionGuard()
     last: dict = {}
     # synthetic mode: a fixed held-out probe with known NON-CONSTANT ground
     # truth, so training reports a real EPE (not just the photometric loss)
     probe = {}
-    if d.synthetic:
+    if d.synthetic and is_primary():
         probe = {k: warped_pairs(np.random.RandomState(1234 + i), 4, d.image_size, kind=k)
                  for i, k in enumerate(("affine", "two_object"))}
     for epoch in range(start_epoch, o.epochs):
         if d.synthetic:
-            batches = _synthetic_pair_batches(cfg, epoch, steps_cap or 50)
+            batches = ((im1[mine], im2[mine]) for im1, im2 in
+                       _synthetic_pair_batches(cfg, epoch, steps_cap or 50))
         else:
-            batches = _clip_pair_batches(cfg, epoch)
+            batches = _clip_pair_batches(cfg, epoch, limit=steps_cap)
         step_in_epoch = 0
         metrics = None
         for im1, im2 in batches:
@@ -266,7 +297,7 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
             if step_in_epoch % cfg.train.log_every == 0 or steps_cap:
                 logger.log(step=state.step, epoch=epoch,
                            **{k: float(v) for k, v in metrics.items()})
-            if guard.preempted:
+            if guard.preempted and not multiproc:
                 break
         if metrics is not None:  # an epoch can yield zero usable batches
             last = {k: float(v) for k, v in metrics.items()}
@@ -278,13 +309,18 @@ def run_pretrain(cfg: ExperimentConfig, steps_cap: int = 0,
             if probe:
                 logger.log(step=state.step, epoch=epoch,
                            **{k: v for k, v in last.items() if k.startswith("epe_")})
+        # consensus: preempt everywhere if ANY rank caught a signal
+        guard.preempted = preempted_anywhere(guard.preempted, device)
         if guard.preempted:
-            save_checkpoint(cfg.train.summaries_dir, tag, epoch - 1, state)
+            # a partial epoch is saved under the previous epoch's number
             # (epoch-1 may be -1: a resume then restarts at epoch 0 —
-            # max()ing to 0 would mark the partial epoch 0 as complete)
+            # max()ing to 0 would mark the partial epoch 0 as complete);
+            # across ranks the epoch ran to its end and keeps its own
+            save_on_primary(cfg.train.summaries_dir, tag, epoch if multiproc else epoch - 1,
+                            state)
             print(f"[flow] preempted during epoch {epoch}; checkpoint saved")
             break
-        save_checkpoint(cfg.train.summaries_dir, tag, epoch, state)
+        save_on_primary(cfg.train.summaries_dir, tag, epoch, state)
     logger.close()
     guard.restore()
     return last
@@ -307,17 +343,15 @@ def _synthetic_pair_batches(cfg: ExperimentConfig, epoch: int, steps: int):
         yield im1, im2
 
 
-def _clip_pair_batches(cfg: ExperimentConfig, epoch: int):
+def _clip_pair_batches(cfg: ExperimentConfig, epoch: int, limit: int = 0):
     """Consecutive-frame pairs from the training clips, in [0,1], on the
-    host: (B·(T−1), H, W, 3) twice a batch of B clips of T frames."""
-    from avtubes_torch.data.pipeline import BatchLoader
-    from avtubes_torch.train.hardway import build_sources
-
-    train_src, _, _ = build_sources(cfg)
-    loader = BatchLoader(train_src, cfg.optim.batch_size,
-                         num_workers=cfg.data.n_threads, shuffle=True,
-                         seed=cfg.train.seed)
-    for batch in loader.epoch(epoch):
+    host: (B·(T−1), H, W, 3) twice a batch of B clips of T frames, at most
+    `limit` batches (0: all).  Across ranks the clips are the rank's rows of
+    the global batch (the rows loader), so its pairs are its contiguous rows
+    of the global B·(T−1) pairs."""
+    train_src, _, _ = build_sources(cfg, shard_ids=False)
+    loader = rows_loader(cfg, train_src)
+    for batch in loader.epoch(epoch, limit=limit):
         clip = batch["clip"].astype(np.float32) / 255.0  # (B,T,H,W,3)
         if clip.shape[1] < 2:
             continue

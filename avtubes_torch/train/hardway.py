@@ -33,9 +33,10 @@ same generator and takes its own rows, and the step averages the gradients
 over the ranks, with the BatchNorm statistics and the negative pool of the
 global batch.  A preemption signal is agreed at the epoch boundary (an
 all-reduce of the flag) and the completed epoch saved.  The primary alone
-logs, evaluates and writes checkpoints; the others wait at a barrier.  This
-is the only trainer that runs multi-process: the others refuse it
-(`require_single_process`).
+logs, evaluates and writes checkpoints; the others wait at a barrier.  The
+1-frame, 3D tube, consistency and flow-pretrain trainers run across
+processes too, from these parts, but with a GLOBAL `--batch_size` of which
+each rank holds its rows (`core/distributed.py::rows_of`).
 
 What the JAX package has and this port does not, and which raises rather
 than run something else: `--group_steps > 1` (not to port).
@@ -67,6 +68,7 @@ from avtubes_torch.core.distributed import (
     local_device,
     preempted_anywhere,
     rank,
+    rows_of,
     world_size,
 )
 from avtubes_torch.core.reference_checkpoint import load_reference_checkpoint
@@ -117,22 +119,35 @@ def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None)
                   compute_dtype=cfg.train.compute_dtype, remat=cfg.train.remat)
 
 
-def build_sources(cfg: ExperimentConfig):
+def build_sources(cfg: ExperimentConfig, shard_ids: bool = True):
     """(train source, test source, number of training ids of the whole
-    split).  Across ranks each reads `ids[rank::world]`; the count is the
-    split's, from which every rank agrees on its steps an epoch."""
+    split).  Across ranks, with `shard_ids` (the flagship's per-rank
+    batches), each reads `ids[rank::world]`, and the count is the split's,
+    from which every rank agrees on its steps an epoch; without it (the
+    trainers of a global batch, read by the rows loader) every rank holds
+    the whole split."""
     d = cfg.data
     if d.synthetic:
         train_src = SyntheticSource(d, n=max(4 * cfg.optim.batch_size, 8))
         test_src = SyntheticSource(d, n=8, clip=False, seed=1)
         return train_src, test_src, len(train_src)
     all_train_ids = load_split(d.metadata_dir, d.testset, "train", d.subset)
-    shard = data_shard()
+    shard = data_shard() if shard_ids else None
     train_ids = all_train_ids[shard[0]::shard[1]] if shard else all_train_ids
     test_ids = load_split(d.metadata_dir, d.testset, "test_hardway")
     train_src = ClipTrainSource(d.data_path, train_ids, d)
     test_src = HardwayTestSource(d.og_data_path or d.data_path, test_ids, d)
     return train_src, test_src, len(all_train_ids)
+
+
+def rows_loader(cfg: ExperimentConfig, train_src) -> BatchLoader:
+    """The training loader of a trainer whose `--batch_size` is the global
+    batch: across ranks each rank reads its rows of every global batch
+    (`BatchLoader`'s rows mode); alone, the plain loader."""
+    o = cfg.optim
+    rows_of(o.batch_size)   # a world that does not divide the batch exits here
+    return BatchLoader(train_src, o.batch_size, num_workers=cfg.data.n_threads,
+                       shuffle=True, seed=cfg.train.seed, rows=(rank(), world_size()))
 
 
 def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = HARDWAY_TAG,
@@ -272,14 +287,18 @@ def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torc
     wait, and the per-module norms every `watch_every`-th.  Returns the last
     step's metrics as floats; empty when the epoch yielded no batch.
 
-    Across ranks (`agreed_steps` > 0) the epoch is EXACTLY `agreed_steps`
-    batches (`fixed_count_batches`) and a preemption signal does not stop
-    it: a rank that left mid-epoch would strand its peers inside the next
-    collective, so the signal is agreed at the epoch's end instead."""
+    Across ranks a preemption signal does not stop the epoch: a rank that
+    left mid-epoch would strand its peers inside the next collective, so
+    the signal is agreed at the epoch's end instead.  With the flagship's
+    per-rank batches (`agreed_steps` > 0) the epoch is EXACTLY
+    `agreed_steps` batches (`fixed_count_batches`); the rows loader of the
+    other trainers yields the same count on every rank by itself, and is
+    told the cap (as every loader is), so that its agreement rounds end at
+    the same batch."""
     step_in_epoch = 0
     metrics: dict = {}
     source = (fixed_count_batches(loader, epoch, agreed_steps) if agreed_steps
-              else loader.epoch(epoch))
+              else loader.epoch(epoch, limit=steps_cap))
     batches = device_prefetch(source, device, depth=cfg.data.prefetch)
     try:
         while not (steps_cap and step_in_epoch >= steps_cap):
@@ -298,7 +317,7 @@ def train_epoch(state: TrainState, loader: BatchLoader, epoch: int, device: torc
             if norms and step_in_epoch % cfg.train.watch_every == 0:
                 logger.log(step=state.step, epoch=epoch,
                            **{k: float(v) for k, v in norms.items()})
-            if guard.preempted and not agreed_steps:
+            if guard.preempted and world_size() == 1:
                 break
     finally:
         batches.close()
@@ -324,10 +343,13 @@ def end_of_epoch_preempted(state: TrainState, loader: BatchLoader, epoch: int,
 
 
 def hardway_test(state: TrainState, test_src, d, spec_cfg: SpectrogramConfig, gt_lookup,
-                 epoch: int, logger: MetricLogger, record: int = 0) -> dict[str, float]:
+                 epoch: int, logger: MetricLogger, record: int = 0,
+                 sharded: bool = False) -> dict[str, float]:
     """The hard-way test of one epoch, logged: samples in order, the last
     partial batch kept, decoded by `make_hardway_loader`'s mode for the
-    transport (AVTUBES_EVAL_LOADER overrides it)."""
+    transport (AVTUBES_EVAL_LOADER overrides it).  `sharded`: every rank
+    calls it and scores its rows of each batch (`evaluate_hardway`); the
+    primary returns the metrics, the others an empty dict."""
     eval_bsz = min(d.eval_batch_size, len(test_src))
     if isinstance(test_src, HardwayTestSource):
         test_loader = make_hardway_loader(test_src.root, test_src.ids, d, eval_bsz,
@@ -336,8 +358,9 @@ def hardway_test(state: TrainState, test_src, d, spec_cfg: SpectrogramConfig, gt
         test_loader = BatchLoader(test_src, eval_bsz, num_workers=d.n_threads,
                                   shuffle=False, drop_last=False)
     metrics = evaluate_hardway(state.model, test_loader, d, spec_cfg, gt_lookup, epoch=epoch,
-                               logger=logger, record=record)
-    logger.log(step=state.step, epoch=epoch, **metrics)
+                               logger=logger, record=record, sharded=sharded)
+    if metrics:
+        logger.log(step=state.step, epoch=epoch, **metrics)
     return metrics
 
 

@@ -28,6 +28,13 @@ BatchNorm (the audio tower's too) takes that forward's update once and
 nothing more; `train3d_step` also logs the NP-ratio of the (B, T) heatmaps,
 outside autograd.  Their fused forms start from raw inputs like the
 flagship's, with their random draws injected.
+
+Under a process group every step here holds the rank's rows of the batch:
+the BatchNorm statistics and the negative pool span the ranks, and the
+gradients and metrics are averaged over them in one all-reduce after the
+backward.  Each loss is a mean over the rank's rows and the ranks' row
+counts are equal, so the mean of the rank means is the global batch's mean
+and the averaged gradient is that of the global batch's mean loss.
 """
 
 from __future__ import annotations
@@ -113,6 +120,12 @@ def pytree_group_norms(named: Iterable[tuple[str, torch.Tensor]],
     return {k: torch.stack(v).sum().sqrt() for k, v in squares.items()}
 
 
+def _average_over_ranks(model: nn.Module, metrics: dict[str, torch.Tensor]) -> None:
+    """The gradients and the metrics, in place, as their means over the
+    ranks, in ONE all-reduce (nothing without a process group)."""
+    all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None]
+                     + list(metrics.values()))
+
 def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch.Tensor,
                        spec: torch.Tensor, loss_weight: float = 0.1,
                        watch: bool = False, negative_pool: str = "global"
@@ -146,8 +159,7 @@ def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch
     metrics = {k: v.detach().clone() for k, v in (
         ("loss", combined), ("hardway_loss", hw), ("aug_loss", aug), ("l2_loss", l2),
         ("consistency_loss", prop))}
-    all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None]
-                     + list(metrics.values()))
+    _average_over_ranks(model, metrics)
     state.apply_gradients()
     _advance_audio_stats(model, old_stats)
     return _finish(model, metrics, watch)
@@ -186,14 +198,20 @@ def hardway_1frame_train_step(state: TrainState, frames: torch.Tensor, spec: tor
     """One update of AVENet from single frames (B, H, W, 3) and their
     spectrograms (B, F, Tt, 1): the plain hard-way CE over one forward.
     Each BatchNorm, the audio tower's included, takes that forward's update
-    once (no `_advance_audio_stats`)."""
+    once (no `_advance_audio_stats`).  Under a process group the batch is
+    the rank's rows of the global batch: each frame is contrasted with the
+    audio of the global batch, and the gradients and the loss (a mean over
+    equal-sized rank slices) are averaged over the ranks."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss = hardway_loss(model(frames, spec).logits)
+    loss = hardway_loss(model(frames, spec, negative_pool="global").logits)
     loss.backward()
+    metrics = {"loss": loss.detach().clone()}
+    _average_over_ranks(model, metrics)
     state.apply_gradients()
-    return _finish(model, {"loss": loss}, watch)
+    return _finish(model, metrics, watch)
+
 
 
 def hardway_1frame_fused_step(state: TrainState, frames_uint8: torch.Tensor,
@@ -216,18 +234,24 @@ def train3d_step(state: TrainState, video: torch.Tensor, spec: torch.Tensor,
     a clip (B, F, Tt, 1): the hard-way CE over the (b·t) frames, the audio
     encoded once a clip (`forward_shared_audio`); one BatchNorm update of
     each tower.  The NP-ratio of the (B, T, h, w) heatmaps is logged, not
-    backpropagated."""
+    backpropagated.  Under a process group the clips are the rank's rows:
+    the 3-D and 2-D BatchNorm statistics are the global batch's, every
+    frame is contrasted with the audio keys of the global batch's b·t
+    frames, and the gradients, the CE and the NP-ratio (both means over
+    equal-sized rank slices) are averaged over the ranks."""
     b, t = video.shape[:2]
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    out = model.forward_shared_audio(spec, video)
+    out = model.forward_shared_audio(spec, video, negative_pool="global")
     loss = hardway_loss(out.logits)
     with torch.no_grad():
         np_ratio = np_ratio_loss(out.heatmap.reshape(b, t, *out.heatmap.shape[1:]))
     loss.backward()
+    metrics = {"loss": loss.detach().clone(), "np_ratio": np_ratio}
+    _average_over_ranks(model, metrics)
     state.apply_gradients()
-    return _finish(model, {"loss": loss, "np_ratio": np_ratio}, watch)
+    return _finish(model, metrics, watch)
 
 
 def train3d_fused_step(state: TrainState, clips_uint8: torch.Tensor,

@@ -20,6 +20,13 @@ original `.pth` / `.pth.tar` (a FullModel, or a bare Kinetics r3d-18 for
 the video net) or resumes from the newest `tube3d_ep<N>`.  What is not
 ported raises: see `train/hardway.py::check_supported`, and
 `--conv3d_impl` other than `direct`.
+
+Across processes (`core/distributed.py`) `--batch_size` is the GLOBAL batch
+of clips, each rank holding its contiguous rows: the 3-D and 2-D BatchNorm
+take the global batch's statistics (`models/norm.py`) and the head the
+audio keys of the global batch's b·t frames.  The primary alone runs the
+per-frame test, logs and writes checkpoints; a preemption signal is agreed
+at the epoch's end.
 """
 
 from __future__ import annotations
@@ -29,12 +36,20 @@ from pathlib import Path
 
 import torch
 
-from avtubes_torch.core.checkpoint import PreemptionGuard, save_checkpoint
+from avtubes_torch.core.checkpoint import PreemptionGuard
 from avtubes_torch.core.config import ExperimentConfig
-from avtubes_torch.core.device import resolve_device
+from avtubes_torch.core.distributed import (
+    barrier,
+    check_group_matches_environment,
+    is_primary,
+    local_device,
+    preempted_anywhere,
+    rows_of,
+    world_size,
+)
 from avtubes_torch.core.reference_checkpoint import load_fullmodel_reference_checkpoint
 from avtubes_torch.data.index import load_split
-from avtubes_torch.data.pipeline import BatchLoader, PerFrameEvalSource, SyntheticSource
+from avtubes_torch.data.pipeline import PerFrameEvalSource, SyntheticSource
 from avtubes_torch.data.spectrogram import SpectrogramConfig
 from avtubes_torch.models.fullmodel import FullModel
 from avtubes_torch.train.evaluate import evaluate_perframe, make_gt_lookup_auto
@@ -43,6 +58,8 @@ from avtubes_torch.train.hardway import (
     build_sources,
     check_supported,
     end_of_epoch_preempted,
+    rows_loader,
+    save_on_primary,
     train_epoch,
     warm_start_or_resume,
 )
@@ -89,50 +106,64 @@ def perframe_test_setup(cfg: ExperimentConfig):
 def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = TAG,
         do_eval: bool = True) -> dict:
     """Train, evaluate and checkpoint on `cfg.train.device` (the card unless
-    the CPU is asked for).  Returns the last step's metrics with the last
-    evaluation's."""
+    the CPU is asked for; across ranks the rank's own card).  Returns the
+    last step's metrics with the last evaluation's (the primary's).
+
+    Across ranks `--batch_size` is the global batch of clips, as in the JAX
+    package's data mesh: each rank steps on its rows of it, with the view-1
+    flips of the global batch drawn from one generator on every rank.  The
+    per-frame test runs on the primary alone (the JAX trainer gives it no
+    mesh) while the others wait at a barrier."""
     d, o = cfg.data, cfg.optim
     check_supported_3d(cfg)
-    device = resolve_device(cfg.train.device)
+    check_group_matches_environment()
+    device = local_device(cfg.train.device)
+    # the same seed on every rank: the parameters start replicated
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed)).to(device)
     spec_cfg = SpectrogramConfig(samplerate=d.samplerate, seconds=d.audio_seconds)
-    train_src, _, _ = build_sources(cfg)
-    loader = BatchLoader(train_src, o.batch_size, num_workers=d.n_threads,
-                         shuffle=True, seed=cfg.train.seed)
+    train_src, _, _ = build_sources(cfg, shard_ids=False)
+    loader = rows_loader(cfg, train_src)
+    mine = rows_of(o.batch_size)
+    multiproc = world_size() > 1
     steps_per_epoch = max(1, len(loader) if steps_cap == 0 else min(len(loader), steps_cap))
     state = create_train_state(model, o, steps_per_epoch)
     state, start_epoch = warm_start_or_resume(cfg, tag, state,
                                               load_fullmodel_reference_checkpoint)
 
-    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag)
+    logger = MetricLogger(cfg.train.summaries_dir, run_name=tag, enabled=is_primary())
     guard = PreemptionGuard()
     last: dict = {}
     watch = cfg.train.watch_every > 0
     # epoch-invariant: the per-frame test's source and GT are built once
     pf_src, pf_cfg, gt_lookup = perframe_test_setup(cfg) if do_eval else (None, d, None)
     for epoch in range(start_epoch, o.epochs):
-        # the epoch's view-1 flips, drawn on the host
+        # the epoch's view-1 flips, drawn on the host: the global batch's,
+        # from the same generator on every rank, each rank taking its rows
         gen = torch.Generator().manual_seed((cfg.train.seed + 2) * 1_000_003 + epoch)
 
         def step(batch: dict) -> dict:
-            clip = batch["clip"]
-            flip1 = torch.rand(clip.shape[0], generator=gen) < 0.5
-            return train3d_fused_step(state, clip, batch["waveform"], flip1, spec_cfg, watch)
+            flip1 = (torch.rand(o.batch_size, generator=gen) < 0.5)[mine]
+            return train3d_fused_step(state, batch["clip"], batch["waveform"], flip1,
+                                      spec_cfg, watch)
 
         metrics = train_epoch(state, loader, epoch, device, cfg, steps_cap, logger, guard,
                               step)
         if metrics:  # an epoch can yield zero batches (all skipped)
             last = metrics
-        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard):
+        guard.preempted = preempted_anywhere(guard.preempted, device)
+        if end_of_epoch_preempted(state, loader, epoch, cfg, tag, logger, guard,
+                                  epoch_complete=multiproc):
             break
         if pf_src is not None:
-            pf = evaluate_perframe(state.model, pf_src, pf_cfg, spec_cfg, gt_lookup,
-                                   model_kind="3d", logger=logger,
-                                   record=cfg.train.record_qualitative, epoch=epoch)
-            last.update(pf)
-            logger.log(step=state.step, epoch=epoch, **pf)
+            if is_primary():
+                pf = evaluate_perframe(state.model, pf_src, pf_cfg, spec_cfg, gt_lookup,
+                                       model_kind="3d", logger=logger,
+                                       record=cfg.train.record_qualitative, epoch=epoch)
+                last.update(pf)
+                logger.log(step=state.step, epoch=epoch, **pf)
+            barrier(f"avtubes_perframe_ep{epoch}")   # the others wait it out
         if (epoch + 1) % cfg.train.checkpoint_every_epochs == 0:
-            save_checkpoint(cfg.train.summaries_dir, tag, epoch, state)
+            save_on_primary(cfg.train.summaries_dir, tag, epoch, state)
     logger.close()
     guard.restore()
     return last

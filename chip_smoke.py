@@ -178,6 +178,20 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               module on the CPU in float32 (<= 1e-4 of the largest entry;
               the CPU's answers are made on a host thread while nvcc
               builds, and awaited before phase kernels).
+ 13. multigpu one card, so one rank: under `torch.distributed.run` (NCCL,
+              `cuda:0`) one process runs phase train's command, then phase
+              train1f's, tube3d's, flowcons's, flow's and its clip-pair
+              run's at 2 steps with `--batch_size` the global batch, and
+              phase quant's test_quantitative on the 2D and 3D checkpoints
+              (each trainer's losses within 1e-3 of the single process's,
+              one checkpoint each, the test's metrics equal; every kernel
+              counted a run: the `*_ddp` paths); in a one-rank NCCL group,
+              one float32 step of the flagship, 1-frame, 3D, consistency and
+              pretrain steps at the recipe batch against the plain step
+              (loss and statistics within 1e-5, gradients against a float64
+              step where one fits, the collectives counted, both timed by
+              CUDA events); `ShardedArtifactRunner` with one and two
+              replicas on the card and one request through `serve --shard`.
 
 Each phase's line from `serve` on carries `part_seconds` (host clock),
 and a `{"phase": "seconds"}` line gives each phase's seconds.  Then one
@@ -1321,7 +1335,8 @@ def shift_recovery(dev: torch.device) -> dict:
 
 def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> dict[str, int]:
     """Returns K3's forward and backward launches on the pretrainer's steps;
-    leaves its `flownet_ep0` in `shared` for phase flowcons."""
+    leaves its `flownet_ep0` in `shared` for phase flowcons, and its metric
+    log for phase multigpu."""
     from avtubes_torch.cli import flow as flow_cli
     from avtubes_torch.core.checkpoint import latest_checkpoint, restore_checkpoint
     from avtubes_torch.core.config import ExperimentConfig
@@ -1352,6 +1367,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> d
                     "backward": k3.correlation_backward_cuda.launches}
         losses = read_losses(dir_kernel)
         require(len(losses) == FLOW_STEPS and np.isfinite(losses).all(), losses)
+        shutil.copy(os.path.join(dir_kernel, "flownet.metrics.jsonl"), shared)
         require(all(np.isfinite(v) for v in final.values()), final)
         # one forward per step and one per held-out probe (two kinds); one
         # backward launch per step, for both gradients
@@ -2396,8 +2412,9 @@ def one_frame_batch(dev: torch.device, seed: int):
     return clips[:, 0].contiguous(), waves, draws.flip1
 
 
-def phase_train1f(dev: torch.device, report: str) -> dict[str, int]:
-    """Returns K1's and K2's launches on the 1-frame trainer's CLI run."""
+def phase_train1f(dev: torch.device, report: str, shared: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the 1-frame trainer's CLI run;
+    leaves its metric log in `shared` for phase multigpu."""
     from avtubes_torch.cli import train_hardway_1frame as cli
     from avtubes_torch.core.config import OptimConfig
     from avtubes_torch.train.state import create_train_state
@@ -2419,6 +2436,7 @@ def phase_train1f(dev: torch.device, report: str) -> dict[str, int]:
         require(launches == {"stft": T1F_STEPS + TRAIN_EVAL_BATCHES,
                              "median_select": TRAIN_EVAL_BATCHES}, launches)
         ckpts = check_checkpoint(run_dir, "hardway1frm")
+        shutil.copy(os.path.join(run_dir, "hardway1frm.metrics.jsonl"), shared)
         images = sorted(os.listdir(os.path.join(run_dir, "images")))
         require(len(images) == T1F_RECORD and all(n.endswith("_hardway_0.jpg") for n in images),
                 images)
@@ -2463,7 +2481,8 @@ def phase_train1f(dev: torch.device, report: str) -> dict[str, int]:
 def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[str, int]]:
     """Returns K1's and K2's launches on the 3D tube trainer's CLI runs,
     plain (`train_3d`) and `--remat` (`train_3d_remat`); leaves the plain
-    run's `tube3d_ep0` in `shared` for phase quant."""
+    run's `tube3d_ep0` in `shared` for phase quant, and its metric log for
+    phase multigpu."""
     from avtubes_torch.cli import train_3d as cli
     from avtubes_torch.core.config import OptimConfig
     from avtubes_torch.models.fullmodel import FullModel
@@ -2491,7 +2510,8 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
         require(launches == {"stft": TUBE_STEPS + TUBE_EVAL_VIDEOS,
                              "median_select": TUBE_EVAL_VIDEOS}, launches)
         ckpts = check_checkpoint(run_dir, "tube3d")
-        shutil.copy(os.path.join(run_dir, ckpts[0]), shared)
+        for name in (ckpts[0], "tube3d.metrics.jsonl"):
+            shutil.copy(os.path.join(run_dir, name), shared)
         images = sorted(os.listdir(os.path.join(run_dir, "images")))
         require(images == sorted(f"synthetic_0_test_frame_{f}_0.jpg"
                                  for f in range(1, TUBE_EVAL_FRAMES + 1)), images)
@@ -2745,9 +2765,9 @@ def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
     require(rel <= TRAIN_LOSS_RTOL, (kernel_curve, plain_curve))
     lap("curve_vs_plain")
 
-    # ---- (e) the pretrainer on real clip pairs
-    with tempfile.TemporaryDirectory() as tmp:
-        clip_pairs = clip_pair_pretrain(tmp)
+    # ---- (e) the pretrainer on real clip pairs (the clips and the metric
+    # log stay in `shared` for phase multigpu)
+    clip_pairs = clip_pair_pretrain(os.path.join(shared, "clip_pairs"))
     lap("pretrain_on_clip_pairs")
 
     # ---- step time at the recipe batch, with the flow and without; shares, memory
@@ -2852,6 +2872,8 @@ def phase_quant(dev: torch.device, report: str, shared: str) -> dict[str, dict[s
                                  "median_select": k2_a_batch * QUANT_EVAL_BATCHES},
                 (name, by_run[name]))
     launches = {k: sum(r[k] for r in by_run.values()) for k in ("stft", "median_select")}
+    with open(os.path.join(shared, "test_quantitative.json"), "w") as fh:
+        json.dump(quant, fh)   # phase multigpu's single-process answers
     lap("test_quantitative")
 
     # ---- (b) the masks and cIoU with the plain K1 + K2, on the restored weights.
@@ -3063,31 +3085,53 @@ def free_port() -> int:
 
 
 def torchrun_child(argv: list[str]) -> int:
-    """`chip_smoke.py --torchrun-child OUT ARGS...`, run by
-    `torch.distributed.run`: the flagship CLI's `main(ARGS)` in this rank,
-    K1's and K2's counts set to 0 just before and read just after; writes
-    {final, launches, backend, world_size, device} to OUT."""
-    from avtubes_torch.cli import train_hardway as train_cli
-    from avtubes_torch.core.distributed import local_device
+    """`chip_smoke.py --torchrun-child OUT JOBS`, run by
+    `torch.distributed.run`: each job of the JSON file JOBS ({"name",
+    "cli", "args"}, in order) is that CLI's `main(args)` in this rank, in
+    one process group for them all (the CLIs' `shutdown` waits for the
+    last), every kernel's count set to 0 just before each and read just
+    after; writes {backend, world_size, device, jobs: {name: {final,
+    launches}}} to OUT."""
+    import importlib
 
-    out, args = argv[0], argv[1:]
-    seen = {}
-    real_run = train_cli.run
+    from avtubes_torch.core import distributed
 
-    def run(cfg, **kwargs):
-        dist = torch.distributed
-        seen.update(backend=dist.get_backend() if dist.is_initialized() else None,
-                    world_size=dist.get_world_size() if dist.is_initialized() else 1,
-                    device=str(local_device(cfg.train.device)))
-        return real_run(cfg, **kwargs)
+    out, jobs_path = argv
+    with open(jobs_path) as fh:
+        jobs = json.load(fh)
+    seen, results = {}, {}
+    try:
+        for job in jobs:
+            # a job marked single_process runs before any group is up, with
+            # torchrun's variables hidden: the CLI as one process alone
+            hidden = ({k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE")
+                       if k in os.environ} if job.get("single_process") else {})
+            cli = importlib.import_module(f"avtubes_torch.cli.{job['cli']}")
+            real_run = getattr(cli, "run", None)
+            cli.shutdown = lambda: None
 
-    train_cli.run = run
-    zero_counts()
-    final = train_cli.main(args)
+            def run(cfg, *args, real_run=real_run, **kwargs):
+                dist = torch.distributed
+                seen.update(backend=dist.get_backend() if dist.is_initialized() else None,
+                            world_size=dist.get_world_size() if dist.is_initialized() else 1,
+                            device=str(distributed.local_device(cfg.train.device)))
+                return real_run(cfg, *args, **kwargs)
+
+            if real_run is not None:
+                cli.run = run
+            zero_counts()
+            final = cli.main(job["args"])
+            results[job["name"]] = {
+                "final": final,
+                "launches": {"stft": k1.log_spectrogram_cuda.launches,
+                             "median_select": k2.median_mask_cuda.launches, **k3_counts()}}
+            if real_run is not None:
+                cli.run = real_run
+            os.environ.update(hidden)
+    finally:
+        distributed.shutdown()
     with open(out, "w") as fh:
-        json.dump({"final": final, **seen,
-                   "launches": {"stft": k1.log_spectrogram_cuda.launches,
-                                "median_select": k2.median_mask_cuda.launches}}, fh)
+        json.dump({**seen, "jobs": results}, fh)
     return 0
 
 
@@ -3190,19 +3234,86 @@ def shard_request(proc: subprocess.Popen, frame: np.ndarray, wave: np.ndarray,
     return sharding, np.asarray(answer["heatmap"], np.float32)
 
 
+#: the torchrun child's jobs of the trainers whose --batch_size is the global
+#: batch, and test_quantitative: the name of each (its path in the kernels
+#: line), each the same command as the single process's in an earlier
+#: phase, 2 steps (the clip pairs: the one batch of their 20 clips)
+MESH_JOBS = ("train_1frame_ddp", "train_3d_ddp", "flow_consistency_ddp",
+             "flow_pretrain_ddp", "flow_pretrain_clips_ddp", "test_quantitative_ddp",
+             "test_quantitative_3d_ddp")
+MESH_STEPS = 2
+MESH_LOSS_RTOL = 1e-3   # the torchrun rank's losses vs the single process's (bf16 where
+                        # the CLI takes it): the CLI run of phase train's bar
+#: collectives of one step of each, in a group: each BatchNorm call
+#: all-gathers its statistics and all-reduces its two gradient sums (20 a
+#: tower), the head all-gathers the audio keys and all-reduces their
+#: gradient, one all-reduce averages the gradients and the metrics;
+#: FlowNetLite has no BatchNorm and the pretrainer no head
+MESH_COLLECTIVES_PER_STEP = {"1frame": {"all_gather": 41, "all_reduce": 42},
+                             "3d": {"all_gather": 41, "all_reduce": 42},
+                             "flow_consistency": {"all_gather": 41, "all_reduce": 42},
+                             "flow_pretrain": {"all_gather": 0, "all_reduce": 1}}
+MESH_TIMED_STEPS = 2
+
+
+def mesh_jobs(shared: str, dirs: dict[str, str]) -> list[dict]:
+    """The torchrun child's commands after the flagship's: phase train1f's,
+    tube3d's, flowcons's, flow's and its clip-pair run's at MESH_STEPS
+    steps, and phase quant's test_quantitative on the 2D and 3D
+    checkpoints of `shared`, each in a directory of `dirs`."""
+    seed = ["--seed", str(SEED)]
+    clips = os.path.join(shared, "clip_pairs", "clips")
+    return [
+        {"name": "train_1frame_ddp", "cli": "train_hardway_1frame",
+         "args": ["--synthetic", "--batch_size", str(T1F_BATCH), "--image_size",
+                  str(IMAGE_SIZE), "--epochs", "1", "--steps", str(MESH_STEPS), *seed,
+                  "--record_qualitative", str(T1F_RECORD),
+                  "--summaries_dir", dirs["train_1frame_ddp"]]},
+        {"name": "train_3d_ddp", "cli": "train_3d",
+         "args": ["--synthetic", "--batch_size", str(TUBE_BATCH), "--frame_density",
+                  str(TUBE_FRAMES), "--image_size", str(IMAGE_SIZE), "--epochs", "1",
+                  "--steps", str(MESH_STEPS), *seed, "--record_qualitative", "1",
+                  "--summaries_dir", dirs["train_3d_ddp"]]},
+        {"name": "flow_consistency_ddp", "cli": "flow",
+         "args": ["--synthetic", "--batch_size", str(FLOWCONS_BATCH), "--frame_density",
+                  str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE), "--epochs", "1",
+                  *seed, "--use_pretrained", "--pretrained_path",
+                  os.path.join(shared, "hardway16.pth.tar"), "--steps", str(MESH_STEPS),
+                  "--summaries_dir", dirs["flow_consistency_ddp"], "--flow_loss_weight",
+                  str(FLOWCONS_WEIGHT)]},
+        {"name": "flow_pretrain_ddp", "cli": "flow",
+         "args": ["--train_flow", "--synthetic", "--image_size", str(IMAGE_SIZE),
+                  "--batch_size", str(FLOW_BATCH), "--epochs", "1", "--steps",
+                  str(MESH_STEPS), *seed, "--summaries_dir", dirs["flow_pretrain_ddp"]]},
+        {"name": "flow_pretrain_clips_ddp", "cli": "flow",
+         "args": ["--train_flow", "--data_path", clips, "--metadata_dir",
+                  os.path.join(clips, "metadata"), "--batch_size", str(CLIP_PAIR_VIDEOS),
+                  "--frame_density", str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE),
+                  "--epochs", "1", "--steps", "1",
+                  "--summaries_dir", dirs["flow_pretrain_clips_ddp"]]},
+        {"name": "test_quantitative_ddp", "cli": "test_quantitative",
+         "args": ["--synthetic", "--summaries_dir", shared]},
+        {"name": "test_quantitative_3d_ddp", "cli": "test_quantitative",
+         "args": ["--synthetic", "--summaries_dir", shared, "--tag", "tube3d"]},
+    ]
+
+
 class MultigpuStarts:
     """Phase multigpu's two subprocesses, started before phase quant (which
     times nothing) so that their start-up (a process, CUDA, NCCL, cuDNN)
-    overlaps it: phase train's command under `torch.distributed.run` with
-    one rank (`--torchrun-child`), and `serve --shard` on a bf16 artifact of
-    the seeded localizer.  `close` stops whichever still runs."""
+    overlaps it: under `torch.distributed.run` with one rank
+    (`--torchrun-child`), phase train's command and then the commands of
+    the trainers of a global batch and of test_quantitative (`mesh_jobs`),
+    in one process; and `serve --shard` on a bf16 artifact of the seeded
+    localizer.  `close` stops whichever still runs."""
 
-    def __init__(self, cfg: SpectrogramConfig):
+    def __init__(self, cfg: SpectrogramConfig, shared: str):
         here = os.path.dirname(os.path.abspath(__file__))
         self.tmp = tempfile.mkdtemp()
         self.run_dir = os.path.join(self.tmp, "run")
         self.out = os.path.join(self.tmp, "child.json")
         self.log = os.path.join(self.tmp, "torchrun.log")
+        self.dirs = {name: os.path.join(self.tmp, name) for name in MESH_JOBS}
         gen = torch.Generator().manual_seed(SEED)
         seeded = perturb_running_stats(AVENet(generator=gen, compute_dtype="float32"), gen)
         seeded_bf16 = AVENet(compute_dtype="bfloat16")
@@ -3217,12 +3328,23 @@ class MultigpuStarts:
                 "--frame_density", str(TRAIN_FRAMES), "--image_size", str(IMAGE_SIZE),
                 "--epochs", "1", "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
                 "--summaries_dir", self.run_dir]
+        tq = [job for job in mesh_jobs(shared, self.dirs) if job["cli"] == "test_quantitative"]
+        jobs = [*({**job, "name": job["name"].replace("_ddp", "_single"),
+                   "single_process": True} for job in tq),
+                {"name": "train_ddp", "cli": "train_hardway", "args": args},
+                *mesh_jobs(shared, self.dirs)]
+        # the consistency trainer loads the newest flownet_ep<N> of its dir
+        os.makedirs(self.dirs["flow_consistency_ddp"])
+        shutil.copy(os.path.join(shared, "flownet_ep0"), self.dirs["flow_consistency_ddp"])
+        jobs_path = os.path.join(self.tmp, "jobs.json")
+        with open(jobs_path, "w") as fh:
+            json.dump(jobs, fh)
         self.t0 = time.monotonic()
         with open(self.log, "w") as log:
             self.torchrun = subprocess.Popen(
                 [sys.executable, "-m", "torch.distributed.run", "--standalone",
                  "--nproc_per_node", "1", os.path.abspath(__file__), "--torchrun-child",
-                 self.out, *args], cwd=here, stdout=log, stderr=subprocess.STDOUT)
+                 self.out, jobs_path], cwd=here, stdout=log, stderr=subprocess.STDOUT)
         self.server = subprocess.Popen(
             [sys.executable, "-m", "avtubes_torch.cli.serve", "--model", model_path, "--shard",
              "--port", "0", "--max_batch", str(MAX_BATCH)],
@@ -3237,6 +3359,218 @@ class MultigpuStarts:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL group of this process (the AVTUBES_COORDINATOR trio
+    on a free port, `maybe_initialize`), destroyed and the environment
+    restored on exit."""
+    from avtubes_torch.core import distributed
+
+    env = {"AVTUBES_COORDINATOR": f"127.0.0.1:{free_port()}", "AVTUBES_NUM_PROCESSES": "1",
+           "AVTUBES_PROCESS_ID": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.maybe_initialize("cuda")
+        require(torch.distributed.get_backend() == "nccl"
+                and torch.distributed.get_world_size() == 1, torch.distributed.get_backend())
+        yield
+    finally:
+        distributed.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_outcome(state, step) -> tuple[float, dict, dict]:
+    """(loss, gradients, running statistics) of one `step(state)`."""
+    loss = float(step(state)["loss"])
+    net = state.model
+    return (loss, {n: p.grad.detach().clone() for n, p in net.named_parameters()},
+            {k: v.detach().clone() for k, v in net.state_dict().items() if "running" in k})
+
+
+def mesh_step_cases(dev: torch.device, cfg: SpectrogramConfig, shared: str) -> dict:
+    """{kind: (make_state, step)}: one float32 step at the recipe batch of
+    each trainer whose `--batch_size` is the global batch, from seeded
+    weights (the consistency trainer's frozen flow net: phase flow's
+    `flownet_ep0`); `make_state()` gives a fresh state of the same weights."""
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.flownet import FlowNetLite
+    from avtubes_torch.models.fullmodel import FullModel
+    from avtubes_torch.train.flow import flow_fused_train_step
+    from avtubes_torch.train.flow_pretrain import (
+        create_flow_state,
+        flow_pretrain_step,
+        translating_pairs,
+    )
+    from avtubes_torch.train.steps import hardway_1frame_fused_step, train3d_fused_step
+
+    from profile_torch_train_step import recipe_batch
+
+    frames, waves1, flips = one_frame_batch(dev, SEED + 11)
+    clips, waves, draws = recipe_batch(dev, TUBE_BATCH, TUBE_FRAMES, IMAGE_SIZE, cfg,
+                                       seed=SEED + 12)
+    flip1 = draws.flip1
+    im1, im2, _ = translating_pairs(np.random.RandomState(SEED + 13), FLOW_BATCH, IMAGE_SIZE)
+    im1, im2 = (torch.from_numpy(a).to(dev) for a in (im1, im2))
+    net = FlowNetLite()
+    net.load_state_dict(torch.load(os.path.join(shared, "flownet_ep0"), map_location="cpu",
+                                   weights_only=True)["params"])
+    net = net.to(dev).eval().requires_grad_(False)
+    avenet = AVENet(generator=torch.Generator().manual_seed(SEED)).to(dev)
+    tube = FullModel(generator=torch.Generator().manual_seed(SEED)).to(dev)
+    return {
+        "1frame": (lambda: _step_copy(avenet, False, OptimConfig()),
+                   lambda st: hardway_1frame_fused_step(st, frames, waves1, flips, cfg)),
+        "3d": (lambda: _step_copy(tube, False, OptimConfig()),
+               lambda st: train3d_fused_step(st, clips, waves, flip1, cfg)),
+        "flow_consistency": (lambda: _step_copy(avenet, False, OptimConfig()),
+                             lambda st: flow_fused_train_step(st, net, clips, waves, flip1, cfg,
+                                                              FLOWCONS_WEIGHT)),
+        "flow_pretrain": (lambda: create_flow_state(torch.Generator().manual_seed(SEED + 11),
+                                                    device=dev),
+                          lambda st: flow_pretrain_step(st, im1, im2)),
+    }
+
+
+def mesh_steps_in_a_group(dev: torch.device, cfg: SpectrogramConfig, shared: str) -> dict:
+    """One float32 step of each trainer of a global batch in a one-rank
+    NCCL group against the plain step from the same state: the loss within
+    DDP_LOSS_RTOL, the running statistics within DDP_STATS_RTOL; the
+    1-frame step's gradients no farther from a float64 step than
+    DDP_GRAD_VS_FLOAT64_RATIO times the plain step's distance + 1e-3 (the
+    median and the largest over the tensors); the pretrainer's (FlowNetLite
+    runs float32 only) within 1e-3 of each tensor's largest entry of the
+    plain step's; the 3D and consistency steps' loss and statistics only (a
+    float64 step of either at the recipe batch is too slow for the smoke).
+    Each group step's collectives are counted, and each group and plain
+    step is timed by CUDA events."""
+    cases = mesh_step_cases(dev, cfg, shared)
+    states = {k: (make(), make()) for k, (make, _) in cases.items()}    # (plain, group)
+    plain = {k: mesh_outcome(states[k][0], step) for k, (_, step) in cases.items()}
+    group, calls, group_ms = {}, {}, {}
+    with one_rank_group():
+        for kind, (_, step) in cases.items():
+            with collectives_counted() as calls[kind]:
+                group[kind] = mesh_outcome(states[kind][1], step)
+            group_ms[kind] = event_ms(step, states[kind][1], MESH_TIMED_STEPS)
+    plain_ms = {k: event_ms(step, states[k][0], MESH_TIMED_STEPS)
+                for k, (_, step) in cases.items()}
+    del states
+    make, step = cases["1frame"]
+    f64_state = make()
+    f64_state.model.double()
+    f64_state.model.imgnet.compute_dtype = f64_state.model.audnet.compute_dtype = torch.float64
+    exact = mesh_outcome(f64_state, step)
+    del f64_state, cases
+    torch.cuda.empty_cache()
+
+    def rel(got: torch.Tensor, want: torch.Tensor) -> float:
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max().clamp_min(1e-30))
+
+    def worst(errs: dict) -> tuple[str, float]:
+        return max(errs.items(), key=lambda kv: kv[1]) if errs else ("", 0.0)
+
+    out = {}
+    for kind in plain:
+        (lp, gp, sp), (lg, gg, sg) = plain[kind], group[kind]
+        require(calls[kind] == MESH_COLLECTIVES_PER_STEP[kind], (kind, calls[kind]))
+        loss_rel = abs(lg - lp) / abs(lp)
+        require(loss_rel <= DDP_LOSS_RTOL, (kind, lg, lp))
+        stats_err = worst({k: rel(v, sp[k]) for k, v in sg.items()})
+        require(stats_err[1] <= DDP_STATS_RTOL, (kind, stats_err))
+        require((kind == "flow_pretrain") == (not sg), (kind, len(sg)))
+        grad_err = {n: rel(g, gp[n]) for n, g in gg.items()}
+        out[kind] = {"loss_group": lg, "loss_plain": lp, "loss_rel_diff": loss_rel,
+                     "running_stats_max_rel_err": stats_err,
+                     "grad_max_rel_err_vs_plain": worst(grad_err),
+                     "collectives_per_step": calls[kind], "step_ms_group": group_ms[kind],
+                     "step_ms_plain": plain_ms[kind]}
+        if kind == "flow_pretrain":
+            require(worst(grad_err)[1] <= 1e-3, worst(grad_err))
+    vs_f64 = {}
+    for name, grads in (("group", group["1frame"][1]), ("plain", plain["1frame"][1])):
+        errs = {n: rel(g, exact[1][n]) for n, g in grads.items()}
+        vs_f64[name] = {"median": float(np.median(list(errs.values()))), "max": worst(errs)}
+    for key in ("median", "max"):
+        got, bar = (vs_f64[k][key] for k in ("group", "plain"))
+        got, bar = (x[1] if isinstance(x, tuple) else x for x in (got, bar))
+        require(got <= DDP_GRAD_VS_FLOAT64_RATIO * bar + 1e-3, (key, vs_f64))
+    out["1frame"].update(loss_float64=exact[0], grad_rel_err_vs_float64=vs_f64)
+    return out
+
+
+def mesh_cli_runs(child: dict, dirs: dict[str, str], shared: str) -> dict:
+    """The torchrun child's runs of the trainers of a global batch and of
+    test_quantitative against the single process's runs of the same
+    commands (the trainers': the earlier phases'; test_quantitative's: the
+    child's own first jobs, before its group was up): launches, losses
+    (MESH_LOSS_RTOL), one checkpoint a trainer, and test_quantitative's
+    metrics equal."""
+    jobs = child["jobs"]
+    refs = {name: (tag, os.path.join(shared, *where, f"{tag}.metrics.jsonl"))
+            for name, tag, where in (("train_1frame_ddp", "hardway1frm", ()),
+                                     ("train_3d_ddp", "tube3d", ()),
+                                     ("flow_consistency_ddp", "flow", ()),
+                                     ("flow_pretrain_ddp", "flownet", ()),
+                                     ("flow_pretrain_clips_ddp", "flownet",
+                                      ("clip_pairs", "clip_pairs")))}
+    expected = {
+        "train_1frame_ddp": {"stft": MESH_STEPS + TRAIN_EVAL_BATCHES,
+                             "median_select": TRAIN_EVAL_BATCHES, "forward": 0, "backward": 0},
+        "train_3d_ddp": {"stft": MESH_STEPS + TUBE_EVAL_VIDEOS,
+                         "median_select": TUBE_EVAL_VIDEOS, "forward": 0, "backward": 0},
+        "flow_consistency_ddp": {"stft": MESH_STEPS, "median_select": 0,
+                                 "forward": MESH_STEPS, "backward": 0},
+        # a forward a step and one for each of the two held-out probes
+        "flow_pretrain_ddp": {"stft": 0, "median_select": 0, "forward": MESH_STEPS + 2,
+                              "backward": MESH_STEPS},
+        "flow_pretrain_clips_ddp": {"stft": 0, "median_select": 0, "forward": 1,
+                                    "backward": 1},
+        "test_quantitative_ddp": {"stft": QUANT_EVAL_BATCHES,
+                                  "median_select": QUANT_EVAL_BATCHES, "forward": 0,
+                                  "backward": 0},
+    }
+    expected["test_quantitative_3d_ddp"] = expected["test_quantitative_ddp"]
+    out = {}
+    for name in MESH_JOBS:
+        require(jobs[name]["launches"] == expected[name], (name, jobs[name]["launches"]))
+        out[name] = {"launches": jobs[name]["launches"]}
+    for name, (tag, ref) in refs.items():
+        with open(os.path.join(dirs[name], f"{tag}.metrics.jsonl")) as fh:
+            got = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
+        with open(ref) as fh:
+            want = [r["loss"] for r in map(json.loads, fh) if "loss" in r][:len(got)]
+        steps = 1 if name == "flow_pretrain_clips_ddp" else MESH_STEPS
+        require(len(got) == len(want) == steps and np.isfinite(got).all(), (name, got, want))
+        loss_rel = float(np.max(np.abs(np.subtract(got, want)) / np.abs(want)))
+        require(loss_rel <= MESH_LOSS_RTOL, (name, got, want))
+        ckpts = check_checkpoint(dirs[name], tag)
+        out[name].update(losses=got, losses_single_process=want, loss_max_rel_diff=loss_rel,
+                         checkpoints=ckpts)
+    # test_quantitative against the same command as one process alone, run
+    # first in the same process (before its group was up); phase quant's
+    # answers on the same checkpoints are recorded beside them, not held:
+    # in this long-lived process the 2D checkpoint's bf16 AUC moved from
+    # run to run (0.1625 / 0.15625 on a bit-equal checkpoint) where a fresh
+    # process's did not; phase serve ran cuDNN's autotuner on the same
+    # shapes here, the likely cause (not measured)
+    with open(os.path.join(shared, "test_quantitative.json")) as fh:
+        phase_quant = json.load(fh)
+    for name, run in (("test_quantitative_ddp", "hardway16"),
+                      ("test_quantitative_3d_ddp", "tube3d")):
+        single = jobs[name.replace("_ddp", "_single")]
+        require(jobs[name]["final"] == single["final"]
+                and single["launches"] == expected[name],
+                (name, jobs[name]["final"], single))
+        out[name].update(metrics=jobs[name]["final"], metrics_phase_quant=phase_quant[run])
+    return out
+
+
 def phase_multigpu(dev: torch.device, report: str, shared: str,
                    starts: MultigpuStarts) -> dict[str, dict[str, int]]:
     """The flagship trainer under `torch.distributed.run` (one rank, NCCL),
@@ -3244,9 +3578,13 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
     float64 one, `ShardedArtifactRunner` with one and two replicas on the
     card, and one request through `serve --shard` (the torchrun run and the
     server: `starts`, begun before phase quant).  The group's step is timed
-    after the torchrun run has ended.  Returns K1's and K2's launches on the
-    torchrun CLI run (`train_ddp`) and on the two-replica bf16 serving
-    (`serve_shard`)."""
+    after the torchrun run has ended.  The same rank then runs the 1-frame,
+    3D, consistency and pretrain CLIs and test_quantitative, held to the
+    earlier phases' single processes (`mesh_cli_runs`), and one float32
+    step of each of those trainers runs in a one-rank group against the
+    plain step (`mesh_steps_in_a_group`).  Returns every kernel's launches
+    on each torchrun CLI run (`train_ddp`, `*_ddp`) and on the two-replica
+    bf16 serving (`serve_shard`)."""
     import torch.distributed as dist
 
     from avtubes_torch.core import distributed
@@ -3311,20 +3649,25 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
             child = json.load(fh)
         require(child["backend"] == "nccl" and child["world_size"] == 1
                 and child["device"] == "cuda:0", child)
-        require(child["launches"] == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
-                                      "median_select": TRAIN_EVAL_BATCHES}, child)
+        flagship = child["jobs"]["train_ddp"]
+        require(flagship["launches"] == {"stft": TRAIN_STEPS + TRAIN_EVAL_BATCHES,
+                                         "median_select": TRAIN_EVAL_BATCHES,
+                                         "forward": 0, "backward": 0}, flagship)
         check_checkpoint(run_dir, "hardway16")        # written once, by the primary
         with open(os.path.join(run_dir, "hardway16.metrics.jsonl")) as fh:
             ddp_losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
         with open(os.path.join(shared, "hardway16.metrics.jsonl")) as fh:
             single_losses = [r["loss"] for r in map(json.loads, fh) if "loss" in r]
-        final = child["final"]
+        final = flagship["final"]
         require(final["hardway_n"] == 8 and 0.0 <= final["hardway_auc"] <= 1.0, final)
         require(len(ddp_losses) == len(single_losses) == TRAIN_STEPS
                 and np.isfinite(ddp_losses).all(), (ddp_losses, single_losses))
         cli_rel = float(np.max(np.abs(np.subtract(ddp_losses, single_losses))
                                / np.abs(single_losses)))
         require(cli_rel <= DDP_CLI_LOSS_RTOL, (ddp_losses, single_losses))
+        # the same rank's runs of the trainers of a global batch and of
+        # test_quantitative, against the earlier phases' single processes
+        mesh_cli = mesh_cli_runs(child, starts.dirs, shared)
         lap("cli_torchrun_after_serving")
 
         # ---- (d) one request over HTTP through `serve --shard`
@@ -3416,13 +3759,17 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
         require(got <= DDP_GRAD_VS_FLOAT64_RATIO * bar + 1e-3, (key, vs_f64))
     lap("fp32_step_in_a_group")
 
+    # ---- (e) one float32 step of each trainer of a global batch, in a group
+    mesh_steps = mesh_steps_in_a_group(dev, cfg, shared)
+    lap("mesh_fp32_steps_in_a_group")
+
     emit("multigpu", card=report, why_one_rank=(
              "one H100 on this machine: NCCL refuses two ranks on one card, and gloo's "
              "collectives on CUDA tensors are broadcast, all_reduce and barrier; the "
              "semantics across ranks are held on the CPU over gloo"),
          torchrun_cli={"backend": child["backend"], "world_size": child["world_size"],
                        "device": child["device"], "steps": TRAIN_STEPS,
-                       "launches": child["launches"], "losses": ddp_losses,
+                       "launches": flagship["launches"], "losses": ddp_losses,
                        "losses_single_process": single_losses,
                        "loss_max_rel_diff": cli_rel, "hardway_ciou": final["hardway_ciou"],
                        "seconds_host_clock": round(ddp_cli_s, 2)},
@@ -3439,13 +3786,25 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
                     "running_stats_max_rel_err": worst(stats_err),
                     "collectives_per_step": calls, "step_ms_group": group_ms,
                     "step_ms_plain": plain_ms},
+         torchrun_cli_global_batch=mesh_cli, fp32_steps_global_batch=mesh_steps,
          sharded=sharded, serve_shard={"line": sharding, "http_heatmap_pearson": http_pearson},
          overlap=("the torchrun run and the server start as subprocesses before phase "
                   "quant and run beside it and the sharded requests served here: "
                   "those requests/s and the torchrun run's seconds are taken side by "
                   "side"),
          part_seconds=lap.seconds)
-    return {"train_ddp": child["launches"], "serve_shard": launches_by_run["2_replicas_bfloat16"]}
+    jobs = child["jobs"]
+
+    def both(*names: str) -> dict[str, int]:
+        return {k: sum(jobs[n]["launches"][k] for n in names) for k in jobs[names[0]]["launches"]}
+
+    return {"train_ddp": flagship["launches"],
+            "serve_shard": launches_by_run["2_replicas_bfloat16"],
+            "train_1frame_ddp": jobs["train_1frame_ddp"]["launches"],
+            "train_3d_ddp": jobs["train_3d_ddp"]["launches"],
+            "flow_consistency_ddp": jobs["flow_consistency_ddp"]["launches"],
+            "flow_pretrain_ddp": both("flow_pretrain_ddp", "flow_pretrain_clips_ddp"),
+            "test_quantitative_ddp": both("test_quantitative_ddp", "test_quantitative_3d_ddp")}
 
 
 def main() -> int:
@@ -3479,13 +3838,13 @@ def main() -> int:
         lap("int8")
         flowcons = phase_flowcons(dev, report, results["correlation"], shared)
         lap("flowcons")
-        train1f_launches = phase_train1f(dev, report)
+        train1f_launches = phase_train1f(dev, report, shared)
         lap("train1f")
         tube3d_launches = phase_tube3d(dev, report, shared)
         lap("tube3d")
         # phase multigpu's subprocesses come up beside phase quant, which
         # times nothing
-        starts = MultigpuStarts(SpectrogramConfig())
+        starts = MultigpuStarts(SpectrogramConfig(), shared)
         try:
             evaluation = phase_quant(dev, report, shared)
             lap("quant")
@@ -3523,11 +3882,18 @@ def main() -> int:
                "correlation": {
                    "flow": flow_launches["forward"],
                    "flow_pretrain_clips": flowcons["flow_pretrain_clips"]["correlation"],
-                   "flow_consistency": flowcons["flow_consistency"]["correlation"]}}
+                   "flow_consistency": flowcons["flow_consistency"]["correlation"],
+                   **{path: c["forward"] for path, c in multigpu_launches.items()
+                      if path.startswith("flow")}}}
     # the backward kernel runs on the pretrainer's paths alone: the
     # consistency trainer's flow net is frozen
-    results["correlation"]["backward_launches"] = (
-        flow_launches["backward"] + flowcons["flow_pretrain_clips"]["correlation_backward"])
+    backward_by_path = {
+        "flow": flow_launches["backward"],
+        "flow_pretrain_clips": flowcons["flow_pretrain_clips"]["correlation_backward"],
+        **{path: c["backward"] for path, c in multigpu_launches.items()
+           if path.startswith("flow")}}
+    results["correlation"]["backward_launches"] = sum(backward_by_path.values())
+    results["correlation"]["backward_launches_by_path"] = backward_by_path
     results["correlation"]["backward_launches_flow_consistency"] = (
         flowcons["flow_consistency"]["correlation_backward"])
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -2,8 +2,8 @@
 processes, in two gloo ranks on the CPU (`torch_port_ranks.py`), against the
 JAX package's `avtubes/core/distributed.py`: the collectives and their
 gradients, the agreed step counts, the preemption consensus, the primary's
-side effects, the CLI in two processes, and the refusal of the other
-trainers.  Every rank and every subprocess wait is bounded by
+side effects, the CLI in two processes, and the refusal of a world that
+does not divide the global batch of the other trainers.  Every rank and every subprocess wait is bounded by
 `torch_port_ranks.TIMEOUT_S`."""
 
 import json
@@ -27,17 +27,12 @@ AGREED = [(100, 10, 1), (99, 10, 1), (5, 10, 1), (100, 10, 4), (30, 10, 5), (41,
           (7, 2, 3)]
 
 
-def _jax_message() -> str:
-    """The JAX package's refusal, as its `require_single_process` raises it."""
-    real = jdist.maybe_initialize
-    jdist.maybe_initialize = lambda: True
-    try:
-        jdist.require_single_process()
-    except SystemExit as e:
-        return str(e)
-    finally:
-        jdist.maybe_initialize = real
-    raise AssertionError("the JAX package did not refuse")
+def _jax_divisor(batch_size: int, world: int) -> int:
+    """The devices the JAX package's `make_data_mesh` takes for a global
+    batch of `batch_size` out of `world` (the largest divisor <= world)."""
+    from avtubes.core.mesh import make_data_mesh
+
+    return make_data_mesh(batch_size, devices=jax.devices("cpu")[:world]).size
 
 
 @pytest.mark.parametrize("case", AGREED, ids=str)
@@ -128,14 +123,17 @@ def test_the_cli_trains_in_two_processes_and_both_resume_from_one_file(tmp_path)
 
 @pytest.mark.parametrize("cli,extra", [
     ("train_hardway_1frame", []), ("train_3d", []), ("flow", ["--train_flow"]), ("flow", [])])
-@pytest.mark.parametrize("env", [{"WORLD_SIZE": "2"},
+@pytest.mark.parametrize("env", [{"WORLD_SIZE": "3"},
                                  {"AVTUBES_COORDINATOR": "127.0.0.1:1",
-                                  "AVTUBES_NUM_PROCESSES": "2", "AVTUBES_PROCESS_ID": "0"}],
+                                  "AVTUBES_NUM_PROCESSES": "3", "AVTUBES_PROCESS_ID": "0"}],
                          ids=["torchrun", "coordinator"])
 def test_the_other_trainers_refuse_more_than_one_process(tmp_path, monkeypatch, cli, extra,
                                                          env):
-    """With the JAX package's message, before any rendezvous, reading or
-    writing."""
+    """The trainers whose `--batch_size` is the global batch run across
+    processes, but refuse a world that does not divide it (3 processes, a
+    batch of 2), naming the divisor that the JAX package's `make_data_mesh`
+    would use, before any rendezvous (the coordinator's port is closed),
+    reading or writing."""
     import importlib
 
     for k, v in env.items():
@@ -143,7 +141,9 @@ def test_the_other_trainers_refuse_more_than_one_process(tmp_path, monkeypatch, 
     main = importlib.import_module(f"avtubes_torch.cli.{cli}").main
     with pytest.raises(SystemExit) as e:
         main([*TINY, *extra, "--steps", "1", "--summaries_dir", str(tmp_path / "s")])
-    assert str(e.value) == _jax_message()
+    divisor = _jax_divisor(2, 3)
+    assert divisor == 2
+    assert f"run {divisor} processes" in str(e.value) and "--batch_size 2" in str(e.value)
     assert not (tmp_path / "s").exists()
 
 

@@ -241,6 +241,31 @@ def test_the_new_trainers_default_to_the_card(tmp_path, cli):
 
 
 @pytest.mark.parametrize("cli,args", [
+    ("train_hardway_1frame", ["--batch_size", "2", "--steps", "1"]),
+    ("train_3d", ["--batch_size", "2", "--frame_density", "2", "--steps", "1"]),
+    ("flow", ["--batch_size", "2", "--frame_density", "2", "--steps", "1"]),
+    ("flow", ["--train_flow", "--batch_size", "2", "--steps", "1"]),
+    ("test_quantitative", [])])
+def test_the_multi_process_entry_points_default_to_the_card(tmp_path, cli, args):
+    """Under torchrun's environment (two processes, a batch of 2 they
+    divide) the trainers of a global batch and test_quantitative map the
+    default device to NCCL on the card, and raise without one before any
+    rendezvous (the store's port is closed), reading or writing: a CUDA run
+    never falls back to gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA card")
+    env = {**os.environ, "WORLD_SIZE": "2", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run(
+        [sys.executable, "-m", f"avtubes_torch.cli.{cli}", "--synthetic", *args,
+         "--image_size", "32", "--samplerate", "8000", "--audio_seconds", "1",
+         "--summaries_dir", str(tmp_path)],
+        cwd=tmp_path, text=True, capture_output=True, timeout=300, env=env)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert not list(tmp_path.iterdir()) and "final:" not in out.stdout
+
+
+@pytest.mark.parametrize("cli,args", [
     ("test_quantitative", ["--synthetic"]),
     ("test_quantitative", ["--synthetic", "--tag", "tube3d"]),
     ("export_torch", ["--out", "m.pth.tar"]),

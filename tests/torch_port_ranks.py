@@ -1,6 +1,7 @@
 """Runs a job of the port in several gloo ranks on the CPU, for the tests of
-`avtubes_torch/core/distributed.py`, `models/norm.py`, `parallel/` and the
-flagship trainer across processes.
+`avtubes_torch/core/distributed.py`, `models/norm.py`, `parallel/`, the
+flagship trainer across processes, and the trainers whose `--batch_size` is
+the global batch (their steps, the rows loader, the sharded evaluation).
 
 `run_ranks(job, payload, tmp_path)` saves `payload` (tensors and plain
 containers) with `torch.save`, starts one process of this file per rank
@@ -21,6 +22,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -253,6 +255,184 @@ def job_trainer(p: dict, rank: int, world: int) -> dict:
 
         hardway.PreemptionGuard = Signalled
     final = hardway.run(ExperimentConfig.from_args(p["args"]), steps_cap=p["steps"])
+    return {"final": final, "saves": saves}
+
+
+def _as_float64(model) -> None:
+    """`model` and the compute dtype of its backbones in float64."""
+    model.double()
+    for name in ("imgnet", "audnet", "vidnet"):
+        if hasattr(model, name):
+            getattr(model, name).compute_dtype = torch.float64
+
+
+def job_mesh_steps(p: dict, rank: int, world: int) -> dict:
+    """One step of each trainer whose `--batch_size` is the global batch,
+    on this rank's rows of it, per (kind, dtype) case, from the same
+    weights: the metrics, the gradients before Adam (what every rank
+    applies), the running statistics and the audio tower after it.  Kinds: '1frame'
+    (`hardway_1frame_train_step`), '3d' (`train3d_step`), 'flow'
+    (`flow_train_step`, weight 0.1, the frozen flow net in float32),
+    'pretrain' (`flow_pretrain_step`, FlowNetLite in float32 whatever its
+    input's type)."""
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.avenet import AVENet
+    from avtubes_torch.models.flownet import FlowNetLite
+    from avtubes_torch.models.fullmodel import FullModel
+    from avtubes_torch.train.flow import flow_train_step
+    from avtubes_torch.train.flow_pretrain import create_flow_state, flow_pretrain_step
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import hardway_1frame_train_step, train3d_step
+
+    out = {}
+    for kind, dtype in p["cases"]:
+        inputs = p["inputs"][kind]
+        b = inputs[0].shape[0] // world
+        x = [a[rank * b:(rank + 1) * b].to(getattr(torch, dtype)) for a in inputs]
+        if kind == "pretrain":
+            state = create_flow_state(torch.Generator().manual_seed(11), 1e-4, device="cpu")
+            metrics = flow_pretrain_step(state, *x)
+        else:
+            model = (FullModel if kind == "3d" else AVENet)(
+                generator=torch.Generator().manual_seed(1))
+            model.load_state_dict(p["weights"][kind])
+            if dtype == "float64":
+                _as_float64(model)
+            state = create_train_state(model, OptimConfig(learning_rate=1e-4), 4)
+            if kind == "1frame":
+                metrics = hardway_1frame_train_step(state, *x)
+            elif kind == "3d":
+                metrics = train3d_step(state, *x)
+            else:
+                flow_net = FlowNetLite(generator=torch.Generator().manual_seed(7)).eval()
+                flow_net.requires_grad_(False)
+                metrics = flow_train_step(state, flow_net, x[0].float(), x[1], 0.1)
+        model = state.model
+        out[(kind, dtype)] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: q.grad.clone() for n, q in model.named_parameters()},
+            "stats": {k: v.clone() for k, v in model.state_dict().items()
+                      if "running" in k or "num_batches" in k},
+            "audio_params": {n: q.detach().clone() for n, q in model.named_parameters()
+                             if n.startswith("audnet.")},
+        }
+    return out
+
+
+def job_norm3d(p: dict, rank: int, world: int) -> dict:
+    """One training forward and backward of the global `BatchNorm3d` on this
+    rank's rows, per case, in the case's memory format; and one forward of
+    the same layer under `models/remat.py`'s frozen recomputation."""
+    from avtubes_torch.models.norm import BatchNorm3d
+    from avtubes_torch.models.remat import running_stats_frozen
+
+    out = {}
+    for name, case in p["cases"].items():
+        b = case["x"].shape[0] // world
+        rows = slice(rank * b, (rank + 1) * b)
+        bn = BatchNorm3d(case["x"].shape[1], eps=1e-5, momentum=0.1).double()
+        bn.load_state_dict(case["state"])
+        bn.train()
+        x = case["x"][rows].clone().contiguous(memory_format=case["format"]).requires_grad_()
+        y = bn(x)
+        (y * case["cot"][rows]).sum().backward()
+        state = {k: v.clone() for k, v in bn.state_dict().items()}
+        with torch.no_grad(), running_stats_frozen(bn):
+            y_frozen = bn(x)
+        out[name] = {"y": y.detach(), "x_grad": x.grad, "weight_grad": bn.weight.grad,
+                     "bias_grad": bn.bias.grad, "state": state,
+                     "channels_last": y.is_contiguous(memory_format=torch.channels_last_3d),
+                     "y_frozen": y_frozen, "state_after_frozen": bn.state_dict()}
+    return out
+
+
+class CountingSource:
+    """A source of `n` small samples whose `load` records the indices it
+    was asked for and raises `SkippedSampleError` for those in `bad`."""
+
+    def __init__(self, n: int, bad=()):
+        self.n, self.bad, self.loaded = n, set(bad), []
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load(self, idx: int, rng):
+        from avtubes_torch.data.pipeline import SkippedSampleError
+
+        self.loaded.append(idx)
+        if idx in self.bad:
+            raise SkippedSampleError(f"sample {idx} is bad")
+        return {"clip": np.full((2, 3), idx, np.int64) + rng.randint(0, 1000, (2, 3)),
+                "id": f"s{idx}"}
+
+
+def job_rows_loader(p: dict, rank: int, world: int) -> dict:
+    """The rows loader's epochs over a counting source, per case: the
+    batches this rank yields, the indices it loaded and the skip counts."""
+    from avtubes_torch.core.config import DataConfig
+    from avtubes_torch.data.pipeline import BatchLoader, SyntheticSource
+
+    out = {}
+    for name, case in p["cases"].items():
+        src = (SyntheticSource(DataConfig(image_size=16, frame_density=2, samplerate=8000,
+                                          audio_seconds=1), n=case["n"])
+               if case.get("synthetic") else CountingSource(case["n"], case["bad"]))
+        loader = BatchLoader(src, case["batch"], num_workers=2, seed=5, rows=(rank, world))
+        batches = list(loader.epoch(case["epoch"], limit=case.get("limit", 0)))
+        out[name] = {"batches": batches, "loaded": getattr(src, "loaded", None),
+                     "epoch_skipped": loader.epoch_skipped, "len": len(loader)}
+    return out
+
+
+def job_eval(p: dict, rank: int, world: int) -> dict:
+    """`evaluate_hardway(sharded=True)` of the given AVENet weights on a
+    synthetic set whose last batch needs padding: the primary's metrics
+    and evaluated ids (the others': empty)."""
+    from avtubes_torch.core.config import DataConfig
+    from avtubes_torch.data.pipeline import BatchLoader, SyntheticSource
+    from avtubes_torch.data.spectrogram import SpectrogramConfig
+    from avtubes_torch.models.avenet import AVENet
+    from avtubes_torch.train.evaluate import evaluate_hardway
+    from avtubes_torch.train.hardway import _synthetic_gt_lookup
+
+    d = DataConfig(**p["data"])
+    model = AVENet(generator=torch.Generator().manual_seed(1))
+    model.load_state_dict(p["weights"])
+    loader = BatchLoader(SyntheticSource(d, n=p["n"], clip=False, seed=1), p["batch"],
+                         num_workers=1, shuffle=False, drop_last=False)
+    ids: list = []
+    metrics = evaluate_hardway(model, loader, d, SpectrogramConfig(d.samplerate,
+                                                                   d.audio_seconds),
+                               _synthetic_gt_lookup(), evaluated_ids=ids, sharded=True)
+    return {"metrics": metrics, "ids": ids}
+
+
+def job_mesh_trainer(p: dict, rank: int, world: int) -> dict:
+    """The 1-frame trainer's `run` (a global `--batch_size`) with a
+    preemption signal caught on the last rank alone during the first
+    epoch: every rank must finish that epoch, stop at its end, and the
+    primary alone save it (under its own number) and log."""
+    import avtubes_torch.train.hardway as hardway
+    import avtubes_torch.train.hardway_1frame as hardway_1frame
+    from avtubes_torch.core import checkpoint
+    from avtubes_torch.core.config import ExperimentConfig
+
+    saves = []
+    real_save = checkpoint.save_checkpoint
+
+    def recording_save(*a, **k):
+        saves.append(a[2])
+        return real_save(*a, **k)
+
+    hardway.save_checkpoint = recording_save
+    if rank == world - 1:
+        class Signalled(hardway_1frame.PreemptionGuard):
+            def __init__(self):
+                super().__init__()
+                self.preempted = True
+
+        hardway_1frame.PreemptionGuard = Signalled
+    final = hardway_1frame.run(ExperimentConfig.from_args(p["args"]), steps_cap=p["steps"])
     return {"final": final, "saves": saves}
 
 
