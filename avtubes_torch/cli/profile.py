@@ -23,13 +23,20 @@ Modes, all with bfloat16 backbones and seeded weights:
 
 One untimed step comes first (kernel builds, cuDNN's choices, the
 allocator's cache).  Prints each step's milliseconds and the median with
-clips/s; `--device` defaults to the card and raises without one
-(`--device cpu` asks for the CPU).  TF32 is off, as in every CLI of the port.
+clips/s, then for the training modes the step's parts as the spans of
+`utils/debug.py::span` recorded them (`train.step` and its `train.input`,
+`train.forward`, `train.backward`, `train.optimizer`): each part's median
+host ms, device ms (its CUDA events) and, on the card, idle ms (the card's
+idle gaps in the written trace whose middle falls inside the part: the
+host was in it when the card ran dry).  `--device` defaults to the card and
+raises without one (`--device cpu` asks for the CPU).  TF32 is off, as in
+every CLI of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -54,7 +61,13 @@ def main(argv=None) -> list[float]:
 
     from avtubes_torch.core.device import disable_tf32, resolve_device
     from avtubes_torch.data.spectrogram import SpectrogramConfig
-    from avtubes_torch.utils.debug import StepTimer, trace
+    from avtubes_torch.utils.debug import (
+        StepTimer,
+        clear_spans,
+        finished_spans,
+        span_table,
+        trace,
+    )
 
     dev = resolve_device(a.device)
     disable_tf32()
@@ -114,6 +127,7 @@ def main(argv=None) -> list[float]:
             return pipeline(frames, w)[0]
 
     StepTimer().tick(run(0))                # untimed: builds, cuDNN's choices, the allocator
+    clear_spans()
     with trace(a.logdir, dev) as logdir:
         timer = StepTimer()
         for i in range(a.steps):
@@ -124,6 +138,11 @@ def main(argv=None) -> list[float]:
     med = sorted(times)[len(times) // 2]
     print(f"median: {med * 1e3:.1f} ms/step ({b / med:.1f} clips/s; each step "
           f"synchronized, on {dev}{', int8' if a.quant else ''})")
+    spans = finished_spans()
+    if spans:
+        written = max((os.path.join(logdir, f) for f in os.listdir(logdir)
+                       if f.endswith(".pt.trace.json")), key=os.path.getmtime)
+        print(span_table(spans, written if dev.type == "cuda" else None))
     print(f"trace written to {logdir} (view: tensorboard --logdir {logdir})")
     return times
 

@@ -320,6 +320,11 @@ class MicroBatcher:
     `runner.warmup()`, in the thread that runs every batch, so cuDNN's
     per-thread autotuner picks its algorithms there; requests submitted
     meanwhile wait in the queue.  `wait_warm` blocks until it is done.
+
+    `stats` (read by `snapshot`) counts requests, batches, errors, cancelled
+    requests and batch sizes; `runner_ms_total` sums the host clock around
+    each `runner.run` (staging, the pipeline and the read-back), which is
+    not the card's time.
     """
 
     def __init__(self, runner: ArtifactRunner, window_ms: float = 5.0,
@@ -334,7 +339,7 @@ class MicroBatcher:
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "errors": 0,
                       "cancelled": 0, "batch_hist": {},
-                      "device_ms_total": 0.0}
+                      "runner_ms_total": 0.0}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="avtubes-microbatch")
         self._thread.start()
@@ -425,7 +430,7 @@ class MicroBatcher:
             self.stats["batches"] += 1
             hist = self.stats["batch_hist"]
             hist[str(len(batch))] = hist.get(str(len(batch)), 0) + 1
-            self.stats["device_ms_total"] += dt_ms
+            self.stats["runner_ms_total"] += dt_ms
         for p, m, h in zip(batch, masks, heatmaps):
             p.mask, p.heatmap = m, h
             p.event.set()

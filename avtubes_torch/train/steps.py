@@ -29,6 +29,14 @@ nothing more; `train3d_step` also logs the NP-ratio of the (B, T) heatmaps,
 outside autograd.  Their fused forms start from raw inputs like the
 flagship's, with their random draws injected.
 
+Each step is one span tree (`utils/debug.py::span`, recorded only while a
+`torch.profiler` session runs): the root `train.step`, opened by the
+outermost step function and given `TrainState.step`, and its parts
+`train.input` (the log-spectrogram and the augmentation, fused steps
+only), `train.forward` (the forward passes and losses), `train.backward`
+and `train.optimizer` (the rank average, Adam, the audio statistics'
+advance and the metrics).
+
 Under a process group every step here holds the rank's rows of the batch:
 the BatchNorm statistics and the negative pool span the ranks, and the
 gradients and metrics are averaged over them in one all-reduce after the
@@ -62,6 +70,7 @@ from avtubes_torch.losses.losses import (
     propagation_loss,
 )
 from avtubes_torch.train.state import TrainState
+from avtubes_torch.utils.debug import span
 
 #: EMA momentum of the BatchNorm running statistics in the flax convention
 #: (torch's `momentum=0.1`)
@@ -143,26 +152,30 @@ def hardway_train_step(state: TrainState, frames: torch.Tensor, augmented: torch
     loss), so every rank takes the same update."""
     b, t = frames.shape[:2]
     model = state.model
-    model.train()
-    old_stats = _audio_stats(model)
-    state.optimizer.zero_grad(set_to_none=True)
-    out, out2 = model.two_view_forward(_fold_time(frames), _fold_time(augmented), spec, t,
-                                       negative_pool)
-    hw = hardway_loss(out.logits) * loss_weight
-    aug = hardway_loss(out2.logits) * loss_weight
-    l2 = consistency_l2(out.weighted_map, out2.weighted_map) * (100.0 - loss_weight)
-    att1 = out.weighted_map.reshape(b, t, *out.weighted_map.shape[1:])
-    att2 = out2.weighted_map.reshape(b, t, *out2.weighted_map.shape[1:])
-    prop = propagation_loss(att1) + propagation_loss(att2)
-    combined = (hw + aug) / 2.0 + l2 + prop
-    combined.backward()
-    metrics = {k: v.detach().clone() for k, v in (
-        ("loss", combined), ("hardway_loss", hw), ("aug_loss", aug), ("l2_loss", l2),
-        ("consistency_loss", prop))}
-    _average_over_ranks(model, metrics)
-    state.apply_gradients()
-    _advance_audio_stats(model, old_stats)
-    return _finish(model, metrics, watch)
+    with span("train.step", state.step):
+        with span("train.forward"):
+            model.train()
+            old_stats = _audio_stats(model)
+            state.optimizer.zero_grad(set_to_none=True)
+            out, out2 = model.two_view_forward(_fold_time(frames), _fold_time(augmented), spec,
+                                               t, negative_pool)
+            hw = hardway_loss(out.logits) * loss_weight
+            aug = hardway_loss(out2.logits) * loss_weight
+            l2 = consistency_l2(out.weighted_map, out2.weighted_map) * (100.0 - loss_weight)
+            att1 = out.weighted_map.reshape(b, t, *out.weighted_map.shape[1:])
+            att2 = out2.weighted_map.reshape(b, t, *out2.weighted_map.shape[1:])
+            prop = propagation_loss(att1) + propagation_loss(att2)
+            combined = (hw + aug) / 2.0 + l2 + prop
+        with span("train.backward"):
+            combined.backward()
+        with span("train.optimizer"):
+            metrics = {k: v.detach().clone() for k, v in (
+                ("loss", combined), ("hardway_loss", hw), ("aug_loss", aug), ("l2_loss", l2),
+                ("consistency_loss", prop))}
+            _average_over_ranks(model, metrics)
+            state.apply_gradients()
+            _advance_audio_stats(model, old_stats)
+            return _finish(model, metrics, watch)
 
 
 def _finish(model: nn.Module, metrics: dict[str, torch.Tensor],
@@ -188,9 +201,11 @@ def hardway_fused_train_step(state: TrainState, clips_uint8: torch.Tensor,
     card; `impl='plain'` runs its plain version), two-view augmentation with
     `draws` (this rank's rows of the global batch's draws), both forward
     passes, the 4-term loss, the Adam update (`hardway_train_step`)."""
-    spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
-    v1, v2 = augment_train_batch(clips_uint8, draws, image_size)
-    return hardway_train_step(state, v1, v2, spec, loss_weight, watch, negative_pool)
+    with span("train.step", state.step):
+        with span("train.input"):
+            spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
+            v1, v2 = augment_train_batch(clips_uint8, draws, image_size)
+        return hardway_train_step(state, v1, v2, spec, loss_weight, watch, negative_pool)
 
 
 def hardway_1frame_train_step(state: TrainState, frames: torch.Tensor, spec: torch.Tensor,
@@ -203,14 +218,18 @@ def hardway_1frame_train_step(state: TrainState, frames: torch.Tensor, spec: tor
     audio of the global batch, and the gradients and the loss (a mean over
     equal-sized rank slices) are averaged over the ranks."""
     model = state.model
-    model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss = hardway_loss(model(frames, spec, negative_pool="global").logits)
-    loss.backward()
-    metrics = {"loss": loss.detach().clone()}
-    _average_over_ranks(model, metrics)
-    state.apply_gradients()
-    return _finish(model, metrics, watch)
+    with span("train.step", state.step):
+        with span("train.forward"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = hardway_loss(model(frames, spec, negative_pool="global").logits)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            metrics = {"loss": loss.detach().clone()}
+            _average_over_ranks(model, metrics)
+            state.apply_gradients()
+            return _finish(model, metrics, watch)
 
 
 
@@ -223,9 +242,11 @@ def hardway_1frame_fused_step(state: TrainState, frames_uint8: torch.Tensor,
     Log-spectrogram (K1 on the card; `impl='plain'` runs its plain version),
     ImageNet normalization, a horizontal flip of each frame whose `flips`
     (B,) bool draw is true, and `hardway_1frame_train_step`."""
-    spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
-    frames = random_hflip(normalize_imagenet(frames_uint8), flips)
-    return hardway_1frame_train_step(state, frames, spec, watch)
+    with span("train.step", state.step):
+        with span("train.input"):
+            spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
+            frames = random_hflip(normalize_imagenet(frames_uint8), flips)
+        return hardway_1frame_train_step(state, frames, spec, watch)
 
 
 def train3d_step(state: TrainState, video: torch.Tensor, spec: torch.Tensor,
@@ -241,17 +262,21 @@ def train3d_step(state: TrainState, video: torch.Tensor, spec: torch.Tensor,
     equal-sized rank slices) are averaged over the ranks."""
     b, t = video.shape[:2]
     model = state.model
-    model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    out = model.forward_shared_audio(spec, video, negative_pool="global")
-    loss = hardway_loss(out.logits)
-    with torch.no_grad():
-        np_ratio = np_ratio_loss(out.heatmap.reshape(b, t, *out.heatmap.shape[1:]))
-    loss.backward()
-    metrics = {"loss": loss.detach().clone(), "np_ratio": np_ratio}
-    _average_over_ranks(model, metrics)
-    state.apply_gradients()
-    return _finish(model, metrics, watch)
+    with span("train.step", state.step):
+        with span("train.forward"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            out = model.forward_shared_audio(spec, video, negative_pool="global")
+            loss = hardway_loss(out.logits)
+            with torch.no_grad():
+                np_ratio = np_ratio_loss(out.heatmap.reshape(b, t, *out.heatmap.shape[1:]))
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            metrics = {"loss": loss.detach().clone(), "np_ratio": np_ratio}
+            _average_over_ranks(model, metrics)
+            state.apply_gradients()
+            return _finish(model, metrics, watch)
 
 
 def train3d_fused_step(state: TrainState, clips_uint8: torch.Tensor,
@@ -263,8 +288,11 @@ def train3d_fused_step(state: TrainState, clips_uint8: torch.Tensor,
     Log-spectrogram (K1 on the card; `impl='plain'`: its plain version),
     view 1 of the two-view augmentation alone (`flip1` (B,) bool, the draws
     view 1 takes), and `train3d_step`."""
-    spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
-    return train3d_step(state, augment_view1(clips_uint8, flip1), spec, watch)
+    with span("train.step", state.step):
+        with span("train.input"):
+            spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
+            video = augment_view1(clips_uint8, flip1)
+        return train3d_step(state, video, spec, watch)
 
 
 @contextlib.contextmanager

@@ -1,11 +1,12 @@
 """The port's tools against the JAX package's: `tools/loadtest.py` (the
 same request bytes; a sweep against a live port server that serves an int8
-artifact on the CPU), `cli/profile.py` in its three modes on the CPU,
-`utils/debug.py` (`shape_report` against the JAX package's report, `trace`,
-`StepTimer`), `data/sampler.py` against the JAX package's sampler, the
-offline dataset tools (`tools/validate`, `create_training_set`,
-`convert_to_jpg`, `convert_jpg_to_mp4`, `download_flickr`: offline only)
-and `cli/doctor` with `--device cpu`."""
+artifact on the CPU), `cli/profile.py` in its three modes on the CPU (and
+the training modes' table of the step's parts), `utils/debug.py`
+(`shape_report` against the JAX package's report, `trace`, `StepTimer`),
+`data/sampler.py` against the JAX package's sampler, the offline dataset
+tools (`tools/validate`, `create_training_set`, `convert_to_jpg`,
+`convert_jpg_to_mp4`, `download_flickr`: offline only) and `cli/doctor`
+with `--device cpu`."""
 
 import json
 import threading
@@ -95,6 +96,20 @@ def test_profile_runs_each_mode_on_the_cpu_and_writes_a_trace(tmp_path, capsys, 
     assert "step 1:" in printed and "clips/s" in printed and str(tmp_path) in printed
     (written,) = tmp_path.glob("*.pt.trace.json")
     assert json.loads(written.read_text())["traceEvents"]
+
+
+@pytest.mark.parametrize("mode", ["train", "train3d"])
+def test_profile_prints_the_step_s_parts_on_the_cpu(tmp_path, capsys, mode):
+    profile.main(["--mode", mode, *TINY, "--logdir", str(tmp_path)])
+    printed = capsys.readouterr().out.splitlines()
+    head = next(i for i, line in enumerate(printed) if line.startswith("span "))
+    assert printed[head].split() == ["span", "count", "host", "ms", "device", "ms", "idle", "ms"]
+    rows = {line.split()[0]: line.split()[1:] for line in printed[head + 1:head + 6]}
+    assert list(rows) == ["train.step", "train.input", "train.forward", "train.backward",
+                          "train.optimizer"]
+    for count, host_ms, device_ms, idle_ms in rows.values():
+        # two traced steps; no card, so no device or idle time
+        assert count == "2" and float(host_ms) > 0 and device_ms == idle_ms == "-"
 
 
 def test_shape_report_totals_the_jax_package_s():
