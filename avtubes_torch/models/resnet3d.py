@@ -30,6 +30,17 @@ is cast to it, each convolution casts its float32 weight per call, and
 BatchNorm on that input keeps float32 weight, bias and statistics: it is
 `models/norm.py::BatchNorm3d`, `nn.BatchNorm3d` whose training statistics
 are the global batch's whenever a process group is up.
+
+The stem's 3 input channels: in bf16 on the H100, cuDNN 9.22 (its heuristic,
+the autotuner off) runs a 7x7x7 3-D convolution over 3, 8 or 16 channels as a
+float32 SIMT implicit GEMM, and one over 32 as a slow sm80 kernel. So on CUDA
+in a 16-bit dtype a 3-D convolution whose input channels are not a multiple
+of 8 runs as a 2-D one (`conv3d_time_folded`): each output frame's temporal
+taps are stacked in the channels, with zero-weighted taps added until the
+channels are a multiple of 8 (7 + 1 frames x 3 = 24), which cuDNN takes on
+the tensor cores. The extra taps add exact zeros, the parameter stays (64, 3,
+7, 7, 7) float32, and autograd carries its gradient back through the fold.
+Elsewhere the convolution is the plain one.
 """
 
 from __future__ import annotations
@@ -38,18 +49,59 @@ import math
 from collections.abc import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from avtubes_torch.models.norm import BatchNorm3d
 from avtubes_torch.models.resnet2d import compute_dtype_of
 
 
+def folded_channels(device: torch.device | str, dtype: torch.dtype, channels: int,
+                    taps: int) -> int:
+    """The input channels of the 2-D convolution that runs a 3-D one with
+    `channels` inputs and `taps` temporal taps: `channels` times the fewest
+    taps, `taps` or more, that make a multiple of 8 (16 bytes a pixel for
+    cuDNN's tensor-core kernels). 0, the 3-D convolution as it is, off CUDA,
+    outside bf16 and fp16, and where `channels` is a multiple of 8 already."""
+    if (torch.device(device).type != "cuda" or dtype not in (torch.bfloat16, torch.float16)
+            or channels % 8 == 0):
+        return 0
+    step = 8 // math.gcd(channels, 8)
+    return channels * -(-taps // step) * step
+
+
+def conv3d_time_folded(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                       padding: Sequence[int], channels: int) -> torch.Tensor:
+    """`F.conv3d(x, w, None, stride, padding)` (groups and dilation 1) as a
+    2-D convolution over each output frame's input frames stacked in its
+    `channels`: the `kt` frames the kernel spans and after them as many as
+    `channels` has room for, whose taps weigh zero. `x` is NCDHW in
+    `channels_last_3d`; so is the result."""
+    b, c, _, h, wd = x.shape
+    o, _, kt, kh, kw = w.shape
+    taps = channels // c
+    frames = F.pad(x.permute(0, 2, 3, 4, 1),
+                   (0, 0, 0, 0, 0, 0, padding[0], padding[0] + taps - kt))
+    windows = frames.unfold(1, taps, stride[0]).transpose(-1, -2)   # (B, T', H, W, taps, C)
+    t = windows.shape[1]
+    stack = windows.reshape(b * t, h, wd, channels)                  # materialised
+    w2 = F.pad(w, (0, 0, 0, 0, 0, taps - kt)).transpose(1, 2).reshape(o, channels, kh, kw)
+    y = F.conv2d(stack.permute(0, 3, 1, 2), w2.contiguous(memory_format=torch.channels_last),
+                 None, stride[1:], padding[1:])                      # (B*T', O, H', W') NHWC
+    return y.permute(0, 2, 3, 1).unflatten(0, (b, t)).permute(0, 4, 1, 2, 3)
+
+
 class Conv3d(nn.Conv3d):
     """`nn.Conv3d` that runs in its input's dtype: the (float32) weight is
-    cast per call, so the parameter and its gradient stay float32."""
+    cast per call, so the parameter and its gradient stay float32. Where
+    `folded_channels` says so, it runs as `conv3d_time_folded`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        w = self.weight.to(x.dtype)
+        folded = folded_channels(x.device, x.dtype, self.in_channels, self.kernel_size[0])
+        if folded:
+            return conv3d_time_folded(x, w, self.stride, self.padding, folded)
+        return self._conv_forward(x, w, None)
 
 
 def _conv(cin: int, cout: int, k: int, stride: tuple[int, int, int] = (1, 1, 1),

@@ -1,8 +1,9 @@
 """The 3D tube model of the port against the JAX package's: a narrow
 `ResNet3D` in eval and train mode, a full-width `FullModel` in float32 at 2
 frames of 64x64, the weight bridge `fullmodel_from_flax`, and the warm start
-from the original implementation's checkpoints.  bfloat16 is in
-`test_torch_port_fullmodel_bf16.py`."""
+from the original implementation's checkpoints, and the stem run as a 2-D
+convolution over its temporal taps folded into zero-padded channels.  bfloat16 is in `test_torch_port_fullmodel_bf16.py`; the
+folded stem on the card in `test_torch_port_resnet3d_card.py`."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,8 @@ from avtubes.models.resnet3d import ResNet3D as JaxResNet3D
 from avtubes_torch.core.convert import flax_path, fullmodel_from_flax, resnet3d_from_flax
 from avtubes_torch.core.reference_checkpoint import load_fullmodel_reference_checkpoint
 from avtubes_torch.models.fullmodel import FullModel
-from avtubes_torch.models.resnet3d import ResNet3D
+from avtubes_torch.models import resnet3d
+from avtubes_torch.models.resnet3d import ResNet3D, conv3d_time_folded, folded_channels
 from avtubes_torch.train import steps as tsteps
 from torch_port_util import (
     IMG,
@@ -90,6 +92,91 @@ def test_resnet3d_shapes_layout_and_input_check():
                for m in port.modules() if isinstance(m, torch.nn.BatchNorm3d))
     with pytest.raises(ValueError, match="NDHWC"):
         port(torch.zeros(1, 2, 16, 16, 1))
+
+
+# ------------------------------------------------------------- the stem's folded taps
+
+@pytest.mark.parametrize("device, dtype, channels, want", [
+    ("cuda", torch.bfloat16, 3, 24),
+    ("cuda", torch.float16, 3, 24),
+    ("cuda", torch.bfloat16, 6, 48),
+    ("cuda", torch.bfloat16, 4, 32),
+    ("cuda", torch.float32, 3, 0),
+    ("cuda", torch.float64, 3, 0),
+    ("cpu", torch.bfloat16, 3, 0),
+    ("cpu", torch.float32, 3, 0),
+    ("cuda", torch.bfloat16, 8, 0),
+    ("cuda", torch.bfloat16, 64, 0),
+])
+def test_folded_channels_engage_on_cuda_in_16_bits_only(device, dtype, channels, want):
+    assert folded_channels(torch.device(device), dtype, channels, 7) == want
+    assert folded_channels(device, dtype, channels, 7) == want
+
+
+def _stem(dtype: torch.dtype) -> resnet3d.Conv3d:
+    return ResNet3D(stage_filters=NARROW, generator=torch.Generator().manual_seed(0)
+                    ).conv1.to(dtype)
+
+
+def _clip(dtype: torch.dtype, t: int = 3) -> torch.Tensor:
+    """An NCDHW clip in channels-last, as `ResNet3D.forward` hands the stem."""
+    clip = torch.randn(2, t, 12, 14, 3, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    return clip.permute(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("channels", [21, 24, 30])
+def test_the_folded_stem_is_the_stem_in_float64(channels):
+    """`conv3d_time_folded` against the plain convolution: output, weight and
+    input gradient to 1e-12, the output in channels-last."""
+    stem = _stem(torch.float64)
+    x = _clip(torch.float64).requires_grad_(True)
+    got = conv3d_time_folded(x, stem.weight, stem.stride, stem.padding, channels)
+    g = torch.randn(got.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+    got_grads = torch.autograd.grad(got, (stem.weight, x), g)
+    want = torch.nn.functional.conv3d(x, stem.weight, None, stem.stride, stem.padding)
+    want_grads = torch.autograd.grad(want, (stem.weight, x), g)
+    assert got.shape == want.shape == (2, 64, 3, 6, 7)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
+def test_the_folded_stem_keeps_its_float32_parameter_and_gradient(monkeypatch):
+    """Through `Conv3d.forward` with the fold forced on: the parameter and its
+    gradient stay (64, 3, 7, 7, 7) float32 and the gradient is the plain one's."""
+    stem = _stem(torch.float32)
+    x = _clip(torch.float32, t=2)
+    (want,) = torch.autograd.grad(stem(x).square().sum(), stem.weight)
+    folds = []
+    monkeypatch.setattr(resnet3d, "folded_channels", lambda *a: folds.append(a) or 24)
+    stem(x).square().sum().backward()
+    assert folds == [(x.device, torch.float32, 3, 7)]
+    assert stem.weight.shape == stem.weight.grad.shape == (64, 3, 7, 7, 7)
+    assert stem.weight.dtype == stem.weight.grad.dtype == torch.float32
+    torch.testing.assert_close(stem.weight.grad, want)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_resnet3d_on_the_cpu_folds_nothing(monkeypatch, compute_dtype):
+    """On the CPU every convolution is the plain one, and the state_dict
+    keeps the float32 stem."""
+    monkeypatch.setattr(resnet3d, "conv3d_time_folded",
+                        lambda *a: pytest.fail("folded on the CPU"))
+    port = ResNet3D(stage_filters=NARROW, generator=torch.Generator().manual_seed(0),
+                    compute_dtype=compute_dtype)
+    out = port(torch.randn(1, 2, 16, 16, 3))
+    assert out.dtype == compute_dtype and out.shape == (1, 2, 1, 1, NARROW[-1])
+    sd = port.state_dict()
+    assert sd["conv1.weight"].shape == (64, 3, 7, 7, 7)
+    assert sd["conv1.weight"].dtype == torch.float32
+
+
+def test_resnet3d_state_dict_is_the_bridge_s(narrow):
+    model, variables, port, _ = narrow
+    want = resnet3d_from_flax(variables["params"], variables["batch_stats"])
+    assert ({k: tuple(v.shape) for k, v in port.state_dict().items()}
+            == {k: tuple(v.shape) for k, v in want.items()})
 
 
 # ------------------------------------------------------------- FullModel
