@@ -10,7 +10,9 @@ It runs on the card (`--device cuda`, the default, raises without one;
 `--device cpu` must be asked for), the backbones in `--compute_dtype`
 (bfloat16 by default, as in the JAX package, or float32; see
 `cli/train_hardway.py`), TF32 off.  Prints `final: {...}`, the last step's
-and the last per-frame test's metrics.
+and the last per-frame test's metrics.  `--video_arch timesformer_b16`
+trains FullModel with TimeSformer-B/16 (divided space-time attention) as its
+tube encoder, over clips of `--frame_density` frames at `--image_size`.
 
 More than one process, one card each (`core/distributed.py`; NCCL, or gloo
 with `--device cpu`), as under the JAX package's data mesh: `--batch_size`

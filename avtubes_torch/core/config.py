@@ -99,6 +99,8 @@ class TrainConfig:
     #                                    JAX package ('direct' | 'stacked' |
     #                                    'sum'); carried, the port has
     #                                    `nn.Conv3d` only
+    video_arch: str = "r3d18"          # the 3D trainer's tube encoder
+    #                                    ('r3d18' | 'timesformer_b16')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +167,11 @@ class ExperimentConfig:
                        choices=["direct", "stacked", "sum"],
                        help="tube-encoder conv3d lowering of the JAX package "
                             "(3D trainer only; carried, not read by the port)")
+        p.add_argument("--video_arch", default="r3d18", type=str,
+                       help="the 3D trainer's tube encoder: 'r3d18' or "
+                            "'timesformer_b16' (TimeSformer-B/16, divided "
+                            "space-time attention, over clips of "
+                            "--frame_density frames at --image_size)")
         p.add_argument("--audio_transport", default="int16", type=str,
                        choices=["float32", "int16", "spec_int16", "spec_int8"],
                        help="audio payload: raw f32, int16 PCM (lossless for "
@@ -200,7 +207,7 @@ class ExperimentConfig:
                 steps_cap=a.steps, remat=a.remat,
                 record_qualitative=a.record_qualitative,
                 jitter_order=a.jitter_order, conv3d_impl=a.conv3d_impl,
-                device=a.device,
+                video_arch=a.video_arch, device=a.device,
             ),
             hardway=HardwayConfig(
                 epsilon=a.epsilon, epsilon2=a.epsilon2, trimap=a.tri_map, use_neg=a.Neg,

@@ -16,6 +16,13 @@ less audio work.  The backbones compute in `compute_dtype` (see
 `models/resnet2d.py`); the head runs in float32 whatever it is.  The audio
 net keeps torch's constant-1 BatchNorm scale (`bn_scale_noise=False`).
 `remat` checkpoints each backbone call in training (`models/remat.py`).
+
+`video_arch` picks the tube encoder: "r3d18" (the default, above) or
+"timesformer_b16", TimeSformer-B/16 with divided space-time attention
+(`models/timesformer.py`) over clips of `frames` frames at `image_size`,
+its 768-wide output mapped to the head's 512 by a bias-free `vidnet.proj`
+and a ReLU.
+Such a tower takes clips of exactly `frames` frames (`clip_frames`).
 """
 
 from __future__ import annotations
@@ -27,20 +34,39 @@ from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_h
 from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 from avtubes_torch.models.resnet3d import ResNet3D
+from avtubes_torch.models.timesformer import TimeSformer
 from avtubes_torch.parallel import pool_head
+
+#: the tube encoders FullModel can be built with
+VIDEO_ARCHS = ("r3d18", "timesformer_b16")
+#: the feature width the hard-way head takes from both towers
+FEATURES = 512
 
 
 class FullModel(nn.Module):
     def __init__(self, hardway: HardwayConfig = HardwayConfig(),
                  generator: torch.Generator | None = None,
-                 compute_dtype: str | torch.dtype = torch.float32, remat: bool = False):
+                 compute_dtype: str | torch.dtype = torch.float32, remat: bool = False,
+                 video_arch: str = "r3d18", image_size: int = 224, frames: int = 16):
         super().__init__()
+        if video_arch not in VIDEO_ARCHS:
+            raise ValueError(f"video_arch must be one of {VIDEO_ARCHS}, got {video_arch!r}")
         self.hardway = hardway
         self.compute_dtype = compute_dtype_of(compute_dtype)
         self.remat = remat
-        self.vidnet = ResNet3D(generator=generator, compute_dtype=self.compute_dtype)
+        self.video_arch = video_arch
+        if video_arch == "r3d18":
+            self.vidnet = ResNet3D(generator=generator, compute_dtype=self.compute_dtype)
+        else:
+            self.vidnet = TimeSformer(image_size, frames, proj_dim=FEATURES,
+                                      generator=generator, compute_dtype=self.compute_dtype)
         self.audnet = ResNet2D(modal="audio", bn_scale_noise=False, generator=generator,
                                compute_dtype=self.compute_dtype)
+
+    @property
+    def clip_frames(self) -> int | None:
+        """The one frame count the tube encoder takes, or None for any."""
+        return self.vidnet.frames if self.video_arch == "timesformer_b16" else None
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> (B, T, H/16, W/16, 512)."""

@@ -78,6 +78,29 @@ def _check_kind(model_kind: str) -> None:
         raise ValueError(f"model_kind must be one of {MODEL_KINDS}, got {model_kind!r}")
 
 
+def _tube_heatmaps(model: nn.Module, spec: torch.Tensor, video: torch.Tensor) -> torch.Tensor:
+    """FullModel's (B K, h, w) heatmaps of clips (B, K, S, S, 3), as one
+    clip each; a tube encoder that takes clips of exactly T frames
+    (`model.clip_frames`) sees windows of T: consecutive ones, the last
+    ending at the clip's last frame, each frame's heatmap from the first
+    window that holds it, and a clip shorter than T is padded with copies
+    of its last frame."""
+    t = getattr(model, "clip_frames", None)
+    b, k = video.shape[:2]
+    if t is None or k == t:
+        return model.forward_shared_audio(spec, video).heatmap
+    if k < t:
+        video = torch.cat([video, video[:, -1:].expand(-1, t - k, *video.shape[2:])], dim=1)
+        heat = model.forward_shared_audio(spec, video).heatmap
+        return heat.unflatten(0, (b, t))[:, :k].flatten(0, 1)
+    parts, done = [], 0
+    for s in [*range(0, k - t, t), k - t]:
+        heat = model.forward_shared_audio(spec, video[:, s:s + t]).heatmap
+        parts.append(heat.unflatten(0, (b, t))[:, done - s:])
+        done = s + t
+    return torch.cat(parts, dim=1).flatten(0, 1)
+
+
 def _hardway_eval_masks(model: nn.Module, frames_uint8: torch.Tensor,
                         waveforms: torch.Tensor, spec_cfg: SpectrogramConfig,
                         impl: str = "kernel", model_kind: str = "2d") -> torch.Tensor:
@@ -88,7 +111,7 @@ def _hardway_eval_masks(model: nn.Module, frames_uint8: torch.Tensor,
         frames = normalize_imagenet(frames_uint8)
         spec = log_spectrogram(waveforms, spec_cfg, impl=impl)[..., None]
         if model_kind == "3d":
-            heat = model.forward_shared_audio(spec, frames[:, None]).heatmap
+            heat = _tube_heatmaps(model, spec, frames[:, None])
         else:
             heat = model(frames, spec).heatmap
         return heatmap_to_mask_batch(heat, impl=impl)
@@ -103,7 +126,7 @@ def _perframe_masks(model: nn.Module, frames_uint8: torch.Tensor, waveform: torc
         frames = normalize_imagenet(frames_uint8)
         spec = log_spectrogram(waveform[None], spec_cfg, impl=impl)[..., None]
         if model_kind == "3d":
-            heat = model.forward_shared_audio(spec, frames[None]).heatmap
+            heat = _tube_heatmaps(model, spec, frames[None])
         else:
             heat = model.forward_shared_audio(frames, spec).heatmap
         return heatmap_to_mask_batch(heat, impl=impl)

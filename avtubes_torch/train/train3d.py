@@ -21,6 +21,12 @@ the video net) or resumes from the newest `tube3d_ep<N>`.  What is not
 ported raises: see `train/hardway.py::check_supported`, and
 `--conv3d_impl` other than `direct`.
 
+`--video_arch timesformer_b16` builds FullModel with TimeSformer-B/16 as its
+tube encoder (`models/timesformer.py`) over clips of `--frame_density`
+frames at `--image_size`; no original checkpoint of it exists, so a
+warm start from one raises.  The per-frame test takes such a tower's
+fixed clip length in windows (`train/evaluate.py`).
+
 Across processes (`core/distributed.py`) `--batch_size` is the GLOBAL batch
 of clips, each rank holding its contiguous rows: the 3-D and 2-D BatchNorm
 take the global batch's statistics (`models/norm.py`) and the head the
@@ -51,7 +57,7 @@ from avtubes_torch.core.reference_checkpoint import load_fullmodel_reference_che
 from avtubes_torch.data.index import load_split
 from avtubes_torch.data.pipeline import PerFrameEvalSource, SyntheticSource
 from avtubes_torch.data.spectrogram import SpectrogramConfig
-from avtubes_torch.models.fullmodel import FullModel
+from avtubes_torch.models.fullmodel import VIDEO_ARCHS, FullModel
 from avtubes_torch.train.evaluate import evaluate_perframe, make_gt_lookup_auto
 from avtubes_torch.train.hardway import (
     _synthetic_gt_lookup,
@@ -71,12 +77,29 @@ TAG = "tube3d"
 
 
 def check_supported_3d(cfg: ExperimentConfig) -> None:
-    """`check_supported`, and `--conv3d_impl` other than `direct` raises."""
+    """`check_supported`; `--conv3d_impl` other than `direct`, an unknown
+    `--video_arch`, and a warm start of `timesformer_b16` from an original
+    checkpoint raise."""
     check_supported(cfg)
     if cfg.train.conv3d_impl != "direct":
         raise NotImplementedError(
             f"--conv3d_impl {cfg.train.conv3d_impl!r}: the time-stacked Conv3D lowerings "
             "are in ROADMAP.md's 'Not to port'; the port runs nn.Conv3d ('direct')")
+    t = cfg.train
+    if t.video_arch not in VIDEO_ARCHS:
+        raise ValueError(f"--video_arch must be one of {VIDEO_ARCHS}, got {t.video_arch!r}")
+    if (t.video_arch == "timesformer_b16" and t.use_pretrained
+            and t.pretrained_path.endswith((".pth", ".pth.tar"))):
+        raise NotImplementedError(
+            f"--use_pretrained --pretrained_path {t.pretrained_path!r} with --video_arch "
+            "timesformer_b16: no original checkpoint of a TimeSformer FullModel exists; "
+            "only the port's own tube3d_ep<N> checkpoints resume it")
+
+
+def draw_view1_flips(gen: torch.Generator, batch: int) -> torch.Tensor:
+    """One step's view-1 flips of `batch` clips, (batch,) bool on the host:
+    Bernoulli(0.5) from `gen`."""
+    return torch.rand(batch, generator=gen) < 0.5
 
 
 def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None) -> FullModel:
@@ -84,7 +107,9 @@ def build_model(cfg: ExperimentConfig, generator: torch.Generator | None = None)
     and checkpointed in training with `--remat`."""
     check_supported_3d(cfg)
     return FullModel(hardway=cfg.hardway, generator=generator,
-                     compute_dtype=cfg.train.compute_dtype, remat=cfg.train.remat)
+                     compute_dtype=cfg.train.compute_dtype, remat=cfg.train.remat,
+                     video_arch=cfg.train.video_arch, image_size=cfg.data.image_size,
+                     frames=cfg.data.frame_density)
 
 
 def perframe_test_setup(cfg: ExperimentConfig):
@@ -142,7 +167,7 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = TAG,
         gen = torch.Generator().manual_seed((cfg.train.seed + 2) * 1_000_003 + epoch)
 
         def step(batch: dict) -> dict:
-            flip1 = (torch.rand(o.batch_size, generator=gen) < 0.5)[mine]
+            flip1 = draw_view1_flips(gen, o.batch_size)[mine]
             return train3d_fused_step(state, batch["clip"], batch["waveform"], flip1,
                                       spec_cfg, watch)
 

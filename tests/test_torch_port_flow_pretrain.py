@@ -310,8 +310,11 @@ def test_config_tree_parses_flag_for_flag_like_the_jax_package():
     want = dataclasses.asdict(JaxExperimentConfig.from_args(argv))
     got = dataclasses.asdict(ExperimentConfig.from_args(argv))
     assert got["train"].pop("device") == "cuda"
+    assert got["train"].pop("video_arch") == "r3d18"      # the port's own tube encoders
     assert got == want
     assert ExperimentConfig.from_args(["--device", "cpu"]).train.device == "cpu"
+    assert ExperimentConfig.from_args(
+        ["--video_arch", "timesformer_b16"]).train.video_arch == "timesformer_b16"
     assert dataclasses.asdict(ExperimentConfig())["data"] == \
         dataclasses.asdict(JaxExperimentConfig())["data"]
 

@@ -319,6 +319,28 @@ def job_mesh_steps(p: dict, rank: int, world: int) -> dict:
     return out
 
 
+def job_timesformer_step(p: dict, rank: int, world: int) -> dict:
+    """One `train3d_step` in float64 of FullModel with a small TimeSformer
+    tube encoder (`p["tower"]`, its weights `p["weights"]`) on this rank's
+    rows of the global batch: the metrics and the gradients before Adam."""
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.fullmodel import FullModel
+    from avtubes_torch.models.timesformer import TimeSformer
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import train3d_step
+
+    model = FullModel(generator=torch.Generator().manual_seed(1))
+    model.vidnet, model.video_arch = TimeSformer(**p["tower"]), "timesformer_b16"
+    model.load_state_dict(p["weights"])
+    _as_float64(model)
+    b = p["video"].shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    state = create_train_state(model, OptimConfig(learning_rate=1e-4), 4)
+    metrics = train3d_step(state, p["video"][rows].double(), p["spec"][rows].double())
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: q.grad.clone() for n, q in model.named_parameters()}}
+
+
 def job_norm3d(p: dict, rank: int, world: int) -> dict:
     """One training forward and backward of the global `BatchNorm3d` on this
     rank's rows, per case, in the case's memory format; and one forward of
