@@ -25,7 +25,13 @@ with the global n/(n-1).  Here each rank holds its slice of the batch, so
 It runs its collectives whenever a process group is up, a one-rank group
 included.  Without a group, or in eval mode, it is `nn.BatchNorm2d`
 itself.  `BatchNorm3d` is the same over (N, C, T, H, W) activations, for
-the 3D tube model's `ResNet3D`.  Each subclasses its `nn` class, so
+the 3D tube model's `ResNet3D`, and takes the ReLU and the residual add
+that follow it in the model as arguments.  Without a group, in training
+mode, on a bf16 `channels_last_3d` CUDA input (a bf16 tube trained on one
+card), it runs BatchNorm, add and ReLU as the hand-written kernels of
+`ops/batchnorm.py` (`fused_batchnorm_engages` says when); everywhere else
+it is the BatchNorm above followed by `+ residual` and `torch.relu`.  Each
+subclasses its `nn` class, so
 `state_dict` keys, the weight
 converters, the `isinstance` checks of the steps and `models/remat.py`'s
 frozen recomputation (momentum 0, `num_batches_tracked` detached) are
@@ -39,6 +45,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from avtubes_torch.ops.batchnorm import batchnorm_act, fused_batchnorm_engages
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -85,21 +93,33 @@ class _GlobalBatchNorm(torch.autograd.Function):
         return dx.to(x.dtype), grad_weight, grad_bias, None
 
 
+def _grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 class _GlobalStats:
     """The training forward of a BatchNorm over the global batch; mixed in
     before an `nn.BatchNorm2d` / `nn.BatchNorm3d`, whose own forward runs
     without a group and in eval mode."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and dist.is_available() and dist.is_initialized()):
-            return super().forward(x)
-        self._check_input_dim(x)
+    def _running_factor(self) -> float:
+        """Advance `num_batches_tracked` as `nn.BatchNorm2d` does in
+        training; the factor by which the running statistics move toward
+        the batch's (momentum, the cumulative average's 1/count, or 0 while
+        `models/remat.py` recomputes)."""
         factor = 0.0 if self.momentum is None else self.momentum
-        y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
         if self.track_running_stats and self.num_batches_tracked is not None:
             self.num_batches_tracked.add_(1)
             if self.momentum is None:   # cumulative average, as nn.BatchNorm2d
                 factor = 1.0 / float(self.num_batches_tracked)
+        return factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and _grouped()):
+            return super().forward(x)
+        self._check_input_dim(x)
+        y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        factor = self._running_factor()
         if self.track_running_stats:
             with torch.no_grad():
                 unbiased = var * (n / torch.clamp_min(n - 1, 1))
@@ -118,4 +138,21 @@ class BatchNorm3d(_GlobalStats, nn.BatchNorm3d):
     when a process group is up: the same `_GlobalBatchNorm`, which reduces
     over every axis but C, so (N, C, T, H, W) takes the statistics of all
     N·T·H·W values of a channel across the ranks, in either memory format
-    (`channels_last_3d` included)."""
+    (`channels_last_3d` included).
+
+    `bn(x, residual, relu=True)` is relu(bn(x) + residual): where
+    `fused_batchnorm_engages` says so, one call of the kernels, which round
+    the output once; elsewhere exactly `torch.relu(bn(x) + residual)`."""
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        if fused_batchnorm_engages(x.device, x.dtype, x.shape,
+                                   x.is_contiguous(memory_format=torch.channels_last_3d),
+                                   self.training, _grouped()):
+            factor = self._running_factor()
+            return batchnorm_act(x, self.weight, self.bias, self.running_mean,
+                                 self.running_var, factor, self.eps, residual, relu)
+        y = super().forward(x)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y

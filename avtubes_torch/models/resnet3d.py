@@ -29,7 +29,12 @@ both ends are views.  Compute dtype as in `models/resnet2d.py`: the input
 is cast to it, each convolution casts its float32 weight per call, and
 BatchNorm on that input keeps float32 weight, bias and statistics: it is
 `models/norm.py::BatchNorm3d`, `nn.BatchNorm3d` whose training statistics
-are the global batch's whenever a process group is up.
+are the global batch's whenever a process group is up, and which takes the
+ReLU and the residual add after it (`bn(x, relu=True)`, `bn2(y, identity,
+relu=True)`).  A bf16 tube trained on one card without a group runs each of
+the 20 as the hand-written kernels of `ops/batchnorm.py` (statistics,
+normalize + add + ReLU, and two backward kernels); float32, eval mode, the
+CPU and the group path run `nn.BatchNorm3d`, `+`, `torch.relu` as before.
 
 The stem's 3 input channels: in bf16 on the H100, cuDNN 9.22 (its heuristic,
 the autotuner off) runs a 7x7x7 3-D convolution over 3, 8 or 16 channels as a
@@ -130,9 +135,8 @@ class BasicBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return torch.relu(y + identity)
+        y = self.bn1(self.conv1(x), relu=True)
+        return self.bn2(self.conv2(y), identity, relu=True)
 
 
 class ResNet3D(nn.Module):
@@ -180,7 +184,7 @@ class ResNet3D(nn.Module):
             raise ValueError(f"expected NDHWC RGB clip, got {tuple(x.shape)}")
         x = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3)   # NDHWC -> NCDHW view
         x = x.contiguous(memory_format=self.memory_format)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i + 1}")(x)
         return x.permute(0, 2, 3, 4, 1)                       # NCDHW -> NDHWC view

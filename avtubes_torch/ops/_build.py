@@ -4,8 +4,10 @@ Each `csrc/<name>.cu` has a plain C interface and no PyTorch header, so
 `nvcc` builds it in seconds.  It is compiled for `sm_90a` at first use into
 `avtubes_torch/_build/<name>-<hash>.so` and loaded with `ctypes`; the hash
 covers the source and the flags, so an edited kernel is rebuilt and a stale
-library is never loaded.  Builds of several sources start together (one
-`nvcc` each) and are serialised across processes by a file lock.  A failed
+library is never loaded.  Whichever kernel is asked for first, every missing
+library of `KERNELS` is built in that one batch, all `nvcc` processes
+started together, so no later first use compiles on its own; builds are
+serialised across processes by a file lock.  A failed
 build raises with `nvcc`'s stderr — nothing falls back to another
 implementation.
 """
@@ -31,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("stft", "median_select", "correlation")
+KERNELS = ("stft", "median_select", "correlation", "batchnorm")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _loaded_lock = threading.Lock()
@@ -65,14 +67,17 @@ def library_path(name: str) -> Path:
 
 
 def build(names: tuple[str, ...] = KERNELS) -> dict[str, float]:
-    """Compile every named source whose library is missing, all `nvcc`
-    processes started together.  Returns seconds spent per name (0.0 for a
-    library that was already there).  Raises RuntimeError on any failure."""
+    """Compile every named source whose library is missing and, in the
+    same batch, every other kernel of `KERNELS` whose library is missing,
+    all `nvcc` processes started together.  Returns seconds spent per
+    name compiled or asked for (0.0 for a library that was already there).
+    Raises RuntimeError on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     seconds = {n: 0.0 for n in names}
     with open(BUILD_DIR / ".lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)  # released when the file closes
-        todo = [n for n in names if not library_path(n).exists()]
+        todo = [n for n in dict.fromkeys((*names, *KERNELS))
+                if not library_path(n).exists()]
         if not todo:
             return seconds
         nvcc = find_nvcc()

@@ -25,7 +25,20 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               gradients from one launch (max |diff| <= 1e-5 on unit-scale
               inputs against the plain version and its autograd; every case
               on the variant and tile its geometry names, the library's plan
-              equal to the Python twin's; two runs bit-identical).  CUDA-event times of the
+              equal to the Python twin's; two runs bit-identical), and the
+              fused BatchNorm + add + ReLU (`ops/batchnorm.py`) at R3D-18's
+              20 sites as one bf16 tube step at the recipe batch makes them
+              (20 clips x 16 frames at 224x224; hooks keep each site's input,
+              residual, output and gradients): each site's kernels give the
+              step's output, input gradient and running statistics bit for
+              bit, and are the plain version in float32 within bf16's half
+              ulp (y, dx), 1e-5 of the terms' magnitudes (the weight's and
+              bias' gradients) and 1e-5 (running statistics), the residual's
+              gradient exactly; the step launched each kernel 20 times and
+              copied no gradient.  The 20 sites a step are timed as the
+              kernels, the plain version, `nn.BatchNorm3d` + add + ReLU (the
+              path they replace) and that path on (N, C, T*H, W) views beside
+              the four kernels' byte floor.  CUDA-event times of the
               kernel, the plain version and, where there is one, a library
               call beside them: `ms` over back-to-back calls as a caller
               makes them (the host's launch rate is in it), `kernel_ms` over
@@ -136,9 +149,12 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               a bf16 step's BatchNorm3d statistics against a float64 hand
               computation with n/(n-1); bf16 step time, peak memory,
               launches, layout conversions and idle share (float32's, and
-              the step's parts, by the profile script).  `cli.train_3d
-              --remat`: one step and the per-frame test (K1 and K2 under
-              `train_3d_remat`, two checkpoint segments a step); a bf16
+              the step's parts, by the profile script); the fused
+              BatchNorm's four kernels 20 times a CLI step each and never in
+              the per-frame test.  `cli.train_3d --remat`: one step and the
+              per-frame test (K1 and K2 under `train_3d_remat`, two
+              checkpoint segments a step, the BatchNorm's forward kernels 40
+              times a step and its backward ones 20); a bf16
               `--remat` 3D step against plain ones on the checks of phase
               train, timed in turns.
 
@@ -237,6 +253,7 @@ from avtubes_torch.evaluation.postprocess import IMG as MASK_SIZE
 from avtubes_torch.evaluation.postprocess import heatmap_to_mask_batch
 from avtubes_torch.models.avenet import AVENet
 from avtubes_torch.ops import _build
+from avtubes_torch.ops import batchnorm as kbn
 from avtubes_torch.ops import correlation as k3
 from avtubes_torch.ops import median_select as k2
 from avtubes_torch.ops import stft as k1
@@ -318,6 +335,17 @@ TUBE_EVAL_VIDEOS = 4      # the synthetic per-frame test: 4 clips, stride 1
 TUBE_EVAL_FRAMES = 14     # frames 1 .. 14 of each 16-frame clip are scored
 TUBE_CURVE_BATCH = 4      # clips a step of the plain-vs-kernel curve (time)
 TUBE_REMAT_CLI_STEPS = 1  # `cli.train_3d --remat`: steps before its per-frame test
+TUBE_BN_SITES = 20        # R3D-18's BatchNorm3d: the stem, two a block, three downsamples
+# the fused BatchNorm (ops/batchnorm.py) against its plain version in float32
+BN_Y_RTOL = 2.0 ** -8     # y and dx: bf16's largest relative half ulp (one rounding); an
+#                           atol of 1e-5 (y) or 1e-4 (dx) of the largest entry leaves room
+#                           for the float32 arithmetic before it
+BN_SUM_RTOL = 1e-5        # the weight's and bias' gradient sums: this share of the sum of
+#                           the terms' magnitudes (float32 sums of ~250 terms a thread;
+#                           a wrong term moves them by 1e-3 or more)
+BN_KINK = 1e-4            # no gradient compared where the plain output before the ReLU
+#                           lies this near 0: the two masks may differ there by a rounding
+#                           of the statistics, and each would be right
 
 # the flow-guided consistency trainer's recipe shapes
 FLOWCONS_BATCH = 20       # clips a step: B·(T−1) = 300 frame pairs through the frozen flow net
@@ -745,6 +773,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         "sort_ms": cuda_ms(lambda: torch.sort(flat, dim=1)),
     }
     results["correlation"] = check_correlation(dev)
+    results["batchnorm"] = check_batchnorm(dev)
     emit("kernels", **results)
     return results
 
@@ -934,6 +963,296 @@ def check_correlation(dev: torch.device) -> dict:
         "backward_bound_ms_batch300": bound(4 * CLIP_PAIRS * h * w * (4 * c + d),
                                             4.0 * CLIP_PAIRS * h * w * c * d)[0],
     }
+
+
+def bn_counts() -> dict[str, int]:
+    """The fused BatchNorm's launch counters, and the backward calls whose
+    incoming gradient had to be copied to channels-last first."""
+    return {"stats": kbn.bn_stats_cuda.launches, "apply": kbn.bn_apply_cuda.launches,
+            "backward_reduce": kbn.bn_backward_reduce_cuda.launches,
+            "backward_elemt": kbn.bn_backward_elemt_cuda.launches,
+            "dy_copies": kbn.BatchNormAct.dy_copies}
+
+
+def bn_kind(site: dict) -> str:
+    return "add_relu" if site["r"] is not None else "relu" if site["relu"] else "none"
+
+
+def tube_bn_sites(dev: torch.device, batch: int = TUBE_BATCH, frames: int = TUBE_FRAMES,
+                  size: int = IMAGE_SIZE) -> tuple[list[dict], dict[str, int]]:
+    """Each BatchNorm3d call of R3D-18 in one bf16 training step of the tube
+    model (`train3d_fused_step` on a recipe batch), as the step made it: the
+    site's name, input, residual and ReLU, weight, bias, momentum, running
+    statistics before and after, output, the gradient that reached the
+    output and the one the call passed back to its input.  Also the fused
+    kernels' launches during the step."""
+    from avtubes_torch.core.config import OptimConfig
+    from avtubes_torch.models.fullmodel import FullModel
+    from avtubes_torch.train.state import create_train_state
+    from avtubes_torch.train.steps import train3d_fused_step
+    from profile_torch_train_step import recipe_batch
+
+    cfg = SpectrogramConfig()
+    model = FullModel(generator=torch.Generator().manual_seed(SEED), compute_dtype="bfloat16",
+                      image_size=size, frames=frames)
+    state = create_train_state(model.to(dev), OptimConfig())
+    clips, waves, draws = recipe_batch(dev, batch, frames, size, cfg, seed=SEED)
+    names = {m: n for n, m in state.model.vidnet.named_modules()
+             if isinstance(m, torch.nn.BatchNorm3d)}
+    sites: list[dict] = []
+
+    def before(module, args, kwargs):
+        sites.append({"name": names[module], "running_before": (
+            module.running_mean.clone(), module.running_var.clone())})
+
+    def after(module, args, kwargs, out):
+        site = sites[-1]
+        x = args[0]
+        r = args[1] if len(args) > 1 else kwargs.get("residual")
+        site.update(x=x.detach().clone(), r=None if r is None else r.detach().clone(),
+                    relu=bool(args[2] if len(args) > 2 else kwargs.get("relu", False)),
+                    weight=module.weight.detach().clone(), bias=module.bias.detach().clone(),
+                    momentum=module.momentum, eps=module.eps, y=out.detach().clone(),
+                    running_after=(module.running_mean.clone(), module.running_var.clone()))
+        out.register_hook(lambda g: site.__setitem__("dy", g.detach().clone()))
+        x.register_hook(lambda g: site.__setitem__("dx", g.detach().clone()))
+
+    handles = [h for m in names for h in (m.register_forward_pre_hook(before, with_kwargs=True),
+                                          m.register_forward_hook(after, with_kwargs=True))]
+    counts = bn_counts()
+    try:
+        train3d_fused_step(state, clips, waves, draws.flip1, cfg)
+    finally:
+        for h in handles:
+            h.remove()
+    counts = {k: v - counts[k] for k, v in bn_counts().items()}
+    require(len(sites) == len(names) == TUBE_BN_SITES
+            and all("dy" in s and "dx" in s for s in sites),
+            [(s["name"], sorted(s)) for s in sites])
+    return sites, counts
+
+
+def _over_tolerance(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                    atol: torch.Tensor | float) -> float:
+    """The largest |got - want| / (atol + rtol |want|): at most 1 where
+    they agree."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    return float((err / (atol + rtol * want.abs()).clamp_min(1e-300)).max())
+
+
+def _bn_run(fn, site: dict, dy: torch.Tensor, dtype: torch.dtype) -> dict:
+    """One call of `fn` (the kernels or the plain version) on the site's
+    tensors in `dtype`, from its running statistics before the step, and
+    its backward from `dy`."""
+    x = site["x"].detach().to(dtype).requires_grad_()
+    r = None if site["r"] is None else site["r"].detach().to(dtype).requires_grad_()
+    w = site["weight"].clone().requires_grad_()
+    b = site["bias"].clone().requires_grad_()
+    rm, rv = (t.clone() for t in site["running_before"])
+    y = fn(x, w, b, rm, rv, site["momentum"], site["eps"], r, site["relu"])
+    y.backward(dy.to(dtype))
+    return {"y": y.detach(), "dx": x.grad, "dweight": w.grad, "dbias": b.grad,
+            "dresidual": None if r is None else r.grad, "running_mean": rm, "running_var": rv}
+
+
+def bn_site_check(site: dict) -> dict[str, float]:
+    """The kernels on one site's tensors: the step's own output, input
+    gradient and running statistics bit for bit, and the plain version in
+    float32 within BN_Y_RTOL / BN_SUM_RTOL (the gradient masked where the
+    ReLU's kink lies within BN_KINK).  Returns each quantity's error over
+    its tolerance and y's largest difference."""
+    import torch.nn.functional as F
+
+    got = _bn_run(kbn.batchnorm_act, site, site["dy"], torch.bfloat16)
+    require(torch.equal(got["y"], site["y"]) and torch.equal(got["dx"], site["dx"])
+            and torch.equal(got["running_mean"], site["running_after"][0])
+            and torch.equal(got["running_var"], site["running_after"][1]),
+            f"{site['name']}: the kernels on the step's tensors are not what the step made")
+    del got
+    x, r, dy = site["x"].float(), site["r"], site["dy"]
+    with torch.no_grad():
+        pre = F.batch_norm(x, None, None, site["weight"], site["bias"], True, 0.0, site["eps"])
+        if r is not None:
+            pre += r.float()
+        if site["relu"]:
+            dy = torch.where(pre.abs() < BN_KINK, torch.zeros((), dtype=dy.dtype,
+                                                              device=dy.device), dy)
+            dy = dy.contiguous(memory_format=torch.channels_last_3d)
+        # the magnitudes the gradient sums are made of: sum |g| and sum |g x^|
+        g = torch.where(pre > 0, dy.float(), 0.0) if site["relu"] else dy.float()
+        dims = (0, 2, 3, 4)
+        var, mean = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
+        bias_scale = g.abs().sum(dim=dims)
+        weight_scale = (g * (x - mean)).abs().sum(dim=dims) * (var.flatten() + site["eps"]).rsqrt()
+        del pre, g, var, mean
+    got = _bn_run(kbn.batchnorm_act, site, dy, torch.bfloat16)
+    want = _bn_run(kbn.batchnorm_act_plain, site, dy, torch.float32)
+    errs = {
+        "y": _over_tolerance(got["y"], want["y"], BN_Y_RTOL, 1e-5 * float(want["y"].abs().max())),
+        "dx": _over_tolerance(got["dx"], want["dx"], BN_Y_RTOL,
+                              1e-4 * float(want["dx"].abs().max())),
+        "dweight": _over_tolerance(got["dweight"], want["dweight"], 0.0,
+                                   BN_SUM_RTOL * weight_scale.double()),
+        "dbias": _over_tolerance(got["dbias"], want["dbias"], 0.0,
+                                 BN_SUM_RTOL * bias_scale.double()),
+        "running_mean": _over_tolerance(got["running_mean"], want["running_mean"], 1e-5,
+                                        1e-6 * float(want["running_mean"].abs().max())),
+        "running_var": _over_tolerance(got["running_var"], want["running_var"], 1e-5,
+                                       1e-6 * float(want["running_var"].abs().max())),
+    }
+    require(max(errs.values()) <= 1.0, (site["name"], errs))
+    if r is not None:   # dy masked by the ReLU, no arithmetic: exact
+        require(torch.equal(got["dresidual"].float(), want["dresidual"]),
+                f"{site['name']}: the residual's gradient")
+    errs["y_max_abs_err"] = float((got["y"].float() - want["y"]).abs().max())
+    return errs
+
+
+def bn_byte_floor(values: int, kind: str) -> dict[str, int]:
+    """Bytes each fused kernel must move at a site of `values` bf16 values:
+    statistics read x; apply reads x [and r] and writes y; the backward
+    reduce reads dy and x [and y, and writes g, at a block end]; the
+    backward elementwise reads dy (or g) and x and writes dx."""
+    add = kind == "add_relu"
+    return {"stats": 2 * values, "apply": (4 + 2 * add) * values,
+            "backward_reduce": (4 + 4 * add) * values, "backward_elemt": 6 * values}
+
+
+#: float operations a value over the four kernels: Welford's update 6,
+#: normalize + add + ReLU 5, the reduce's mask and two sums 7, dx 7
+BN_OPS_A_VALUE = 25
+
+
+def check_batchnorm(dev: torch.device) -> dict:
+    """The fused BatchNorm + add + ReLU on the card at R3D-18's 20 sites in
+    a bf16 tube step at the recipe batch: every site against the step and
+    the plain version (`bn_site_check`), 20 launches of each kernel in the
+    step and no copy of a gradient; then the 20 sites, forward and
+    backward, timed as the kernels, as the plain version, as the path they
+    replace (`nn.BatchNorm3d`, the add, `torch.relu`) and as that path on
+    the activation viewed as a channels-last 4-D tensor (N, C, T*H, W),
+    which PyTorch runs on its channels-last 2-D BatchNorm kernels."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sites, counts = tube_bn_sites(dev)
+    require(counts == {"stats": TUBE_BN_SITES, "apply": TUBE_BN_SITES,
+                       "backward_reduce": TUBE_BN_SITES, "backward_elemt": TUBE_BN_SITES,
+                       "dy_copies": 0}, counts)
+    per_site = {}
+    for site in sites:
+        per_site[site["name"]] = bn_site_check(site)
+        for k in ("y", "dx", "dy"):   # the timings below need x and r alone
+            del site[k]
+    # one site of each shape and kind times its kind's calls
+    groups: dict[tuple, list[dict]] = {}
+    for site in sites:
+        groups.setdefault((tuple(site["x"].shape), bn_kind(site)), []).append(site)
+    floor: dict[str, float] = {}
+    values = 0
+    for (shape, kind), members in groups.items():
+        for k, v in bn_byte_floor(math.prod(shape), kind).items():
+            floor[k] = floor.get(k, 0) + len(members) * v
+        values += len(members) * math.prod(shape)
+
+    def calls(path: str) -> list[tuple]:
+        """(forward, inputs, dy, repeats) of each group on `path`."""
+        out = []
+        for (shape, kind), members in groups.items():
+            site = members[0]
+            n, c, t, h, w = shape
+            gen = torch.Generator(dev).manual_seed(SEED + c + h)
+            dy = (torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+                  .contiguous(memory_format=torch.channels_last_3d))
+            x = site["x"].detach().requires_grad_()
+            r = None if site["r"] is None else site["r"].detach().requires_grad_()
+            bn = torch.nn.BatchNorm3d(c, eps=site["eps"], momentum=site["momentum"]).to(dev)
+            relu = site["relu"]
+            if path in ("kernel", "plain"):
+                op = kbn.batchnorm_act if path == "kernel" else kbn.batchnorm_act_plain
+
+                def fwd(x=x, r=r, bn=bn, op=op, relu=relu):
+                    return op(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                              bn.momentum, bn.eps, r, relu)
+            elif path == "library":
+                def fwd(x=x, r=r, bn=bn, relu=relu):
+                    y = bn(x)
+                    y = y if r is None else y + r
+                    return torch.relu(y) if relu else y
+            else:   # "library_as_4d": the same on (N, C, T*H, W) views, no copy
+                x4 = x.view(n, c, t * h, w)
+                r4 = None if r is None else r.view(n, c, t * h, w)
+                require(x4.is_contiguous(memory_format=torch.channels_last), "not a view")
+                dy = dy.view(n, c, t * h, w)
+
+                def fwd(x4=x4, r4=r4, bn=bn, relu=relu):
+                    y = F.batch_norm(x4, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                     True, bn.momentum, bn.eps)
+                    y = y if r4 is None else y + r4
+                    return torch.relu(y) if relu else y
+            inputs = [t_ for t_ in (x, r, bn.weight, bn.bias) if t_ is not None]
+            out.append((fwd, inputs, dy, len(members)))
+        return out
+
+    def step(path_calls, backward: bool = True):
+        def run():
+            for fwd, inputs, dy, repeats in path_calls:
+                for _ in range(repeats):
+                    y = fwd()
+                    if backward:
+                        torch.autograd.grad(y, inputs, dy)
+        return run
+
+    kernel, plain = calls("kernel"), calls("plain")
+    library, library_4d = calls("library"), calls("library_as_4d")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(kernel)()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        for part in ("stats", "apply", "backward_reduce", "backward_elemt"):
+            if e.device_type == DeviceType.CUDA and f"bn_{part}_kernel" in e.key:
+                by_name[part] = by_name.get(part, 0.0) + e.self_device_time_total / 1e3
+    total_bound, bound_by = bound(sum(floor.values()), BN_OPS_A_VALUE * values)
+    kernel_ms = queued_ms(step(kernel), iters=10)
+    result = {
+        "name": "batchnorm_act", "route": "cuda", "source": "avtubes_torch/csrc/batchnorm.cu",
+        "replaces": "none: the JAX package leaves BatchNorm to XLA, which fuses it",
+        "shape": [TUBE_BATCH, "C", TUBE_FRAMES, "H", "W"],
+        "sites": [{"name": s["name"], "shape": list(s["x"].shape), "kind": bn_kind(s)}
+                  for s in sites],
+        "launches_in_the_step": counts,
+        "max_abs_err": max(e["y_max_abs_err"] for e in per_site.values()),
+        "max_err_over_tolerance": {k: max(e[k] for e in per_site.values())
+                                   for k in next(iter(per_site.values())) if k != "y_max_abs_err"},
+        "max_err_over_tolerance_by_site": per_site,
+        # the 20 sites a step, forward and backward
+        "ms": cuda_ms(step(kernel), iters=10),
+        "kernel_ms": kernel_ms,
+        "kernel_ms_forward": queued_ms(step(kernel, backward=False), iters=10),
+        "kernel_ms_by_kernel": by_name or None,   # the profiler's device time, one step
+        "graph_ms": None,
+        "plain_ms": cuda_ms(step(plain), iters=10),
+        "bound_ms": total_bound, "bound_by": bound_by,
+        "bound_ms_by_kernel": {k: v / PEAK_BYTES_PER_S * 1e3 for k, v in floor.items()},
+        "bound_bytes": sum(floor.values()),
+        "algorithm_bound_ms": total_bound,
+        "algorithm": "four launches a site: Welford statistics, normalize + add + ReLU, the "
+                     "backward's two sums (mask from y at a block end), dx; 16-byte loads, "
+                     "partials combined in float64 in a fixed order by the last block",
+        "library_ms": cuda_ms(step(library), iters=10),
+        "library_kernel_ms": queued_ms(step(library), iters=10),
+        "library_kernel_ms_forward": queued_ms(step(library, backward=False), iters=10),
+        "library_call": "nn.BatchNorm3d (training) + residual add + torch.relu, and autograd",
+        "library_ms_as_4d": cuda_ms(step(library_4d), iters=10),
+        "library_kernel_ms_as_4d": queued_ms(step(library_4d), iters=10),
+        "library_kernel_ms_forward_as_4d": queued_ms(step(library_4d, backward=False), iters=10),
+    }
+    del sites, groups, kernel, plain, library, library_4d
+    torch.cuda.empty_cache()
+    return result
 
 
 def make_requests(cfg: SpectrogramConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -1543,6 +1862,9 @@ def zero_counts() -> None:
     k3.correlation_forward_cuda.launches = 0
     k3.correlation_backward_cuda.launches = 0
     k3.correlation_backward_cuda.gradients = 0
+    kbn.bn_stats_cuda.launches = kbn.bn_apply_cuda.launches = 0
+    kbn.bn_backward_reduce_cuda.launches = kbn.bn_backward_elemt_cuda.launches = 0
+    kbn.BatchNormAct.dy_copies = 0
 
 
 def run_cli(main, args: list[str]) -> tuple[dict, dict[str, int], float, float]:
@@ -2478,9 +2800,10 @@ def phase_train1f(dev: torch.device, report: str, shared: str) -> dict[str, int]
     return launches
 
 
-def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[str, int]]:
-    """Returns K1's and K2's launches on the 3D tube trainer's CLI runs,
-    plain (`train_3d`) and `--remat` (`train_3d_remat`); leaves the plain
+def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]:
+    """Returns K1's, K2's and the fused BatchNorm's launches (under
+    "batchnorm", each of its four kernels) on the 3D tube trainer's CLI
+    runs, plain (`train_3d`) and `--remat` (`train_3d_remat`); leaves the plain
     run's `tube3d_ep0` in `shared` for phase quant, and its metric log for
     phase multigpu."""
     from avtubes_torch.cli import train_3d as cli
@@ -2501,6 +2824,7 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
                 "--steps", str(TUBE_STEPS), "--seed", str(SEED), "--record_qualitative", "1",
                 "--summaries_dir", run_dir]
         final, launches, cli_s, cli_peak_gib = run_cli(cli.main, args)
+        bn_launches = bn_counts()   # set to 0 by run_cli just before
         with open(os.path.join(run_dir, "tube3d.metrics.jsonl")) as fh:
             steps = [r for r in map(json.loads, fh) if "loss" in r]
         require(len(steps) == TUBE_STEPS
@@ -2509,6 +2833,11 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
                     for k in ("test_ciou", "test_auc", "test_mtc")), final)
         require(launches == {"stft": TUBE_STEPS + TUBE_EVAL_VIDEOS,
                              "median_select": TUBE_EVAL_VIDEOS}, launches)
+        # each of the 20 BatchNorm3d: every kernel once a step; the per-frame
+        # test runs in eval mode, on PyTorch's BatchNorm
+        n = TUBE_BN_SITES * TUBE_STEPS
+        require(bn_launches == {"stats": n, "apply": n, "backward_reduce": n,
+                                "backward_elemt": n, "dy_copies": 0}, bn_launches)
         ckpts = check_checkpoint(run_dir, "tube3d")
         for name in (ckpts[0], "tube3d.metrics.jsonl"):
             shutil.copy(os.path.join(run_dir, name), shared)
@@ -2522,12 +2851,17 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
                       "--seed", str(SEED), "--remat", "--summaries_dir", remat_dir]
         with segments_counted() as remat_segments:
             remat_final, remat_launches, remat_cli_s, _ = run_cli(cli.main, remat_args)
+            remat_bn_launches = bn_counts()
         require(remat_segments[0] == 2 * TUBE_REMAT_CLI_STEPS, remat_segments)  # video, audio
         require(np.isfinite(remat_final["loss"]) and all(
             0.0 <= remat_final[k] <= 1.0 for k in ("test_ciou", "test_auc", "test_mtc")),
             remat_final)
         require(remat_launches == {"stft": TUBE_REMAT_CLI_STEPS + TUBE_EVAL_VIDEOS,
                                    "median_select": TUBE_EVAL_VIDEOS}, remat_launches)
+        # the checkpointed backbone runs its forward again in the backward
+        n = TUBE_BN_SITES * TUBE_REMAT_CLI_STEPS
+        require(remat_bn_launches == {"stats": 2 * n, "apply": 2 * n, "backward_reduce": n,
+                                      "backward_elemt": n, "dy_copies": 0}, remat_bn_launches)
     lap("cli_remat")
 
     # ---- (b) float32 steps with the plain K1, and one video's masks with the plain K1 + K2
@@ -2613,7 +2947,8 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
     emit("tube3d", card=report, batch=TUBE_BATCH, frames=TUBE_FRAMES, views=1,
          image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
          cli_steps=TUBE_STEPS, cli_eval_videos=TUBE_EVAL_VIDEOS,
-         cli_seconds_host_clock=round(cli_s, 2), launches=launches, steps=steps, final=final,
+         cli_seconds_host_clock=round(cli_s, 2), launches=launches, bn_launches=bn_launches,
+         steps=steps, final=final,
          checkpoints=ckpts, images=len(images), max_memory_allocated_gib_cli=cli_peak_gib,
          curve_dtype="float32", curve_batch=TUBE_CURVE_BATCH, curve_kernel=kernel_losses,
          curve_plain=plain_losses, curve_max_rel_diff_vs_plain=rel,
@@ -2622,11 +2957,13 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict[
          bn3d_running_stats_vs_hand_max_rel_err=bn_err,
          train_step_ms=remat["timing"]["plain"]["step_ms_mean"],
          remat_cli={"steps": TUBE_REMAT_CLI_STEPS, "launches": remat_launches,
+                    "bn_launches": remat_bn_launches,
                     "segments": remat_segments[0],
                     "seconds_host_clock": round(remat_cli_s, 2),
                     "final": {k: remat_final[k] for k in ("loss", "test_ciou", "test_auc")}},
          remat_bf16=remat, part_seconds=lap.seconds)
-    return {"train_3d": launches, "train_3d_remat": remat_launches}
+    return {"train_3d": {**launches, "batchnorm": bn_launches},
+            "train_3d_remat": {**remat_launches, "batchnorm": remat_bn_launches}}
 
 
 def flow_records(run_dir: str) -> list[dict]:
@@ -3884,7 +4221,13 @@ def main() -> int:
                    "flow_pretrain_clips": flowcons["flow_pretrain_clips"]["correlation"],
                    "flow_consistency": flowcons["flow_consistency"]["correlation"],
                    **{path: c["forward"] for path, c in multigpu_launches.items()
-                      if path.startswith("flow")}}}
+                      if path.startswith("flow")}},
+               # the fused BatchNorm's four kernels together: the tube trainer's
+               # paths alone (its group path, train_3d_ddp, keeps PyTorch's)
+               "batchnorm": {path: sum(v for k, v in c["batchnorm"].items() if k != "dy_copies")
+                             for path, c in tube3d_launches.items()}}
+    results["batchnorm"]["launches_by_kernel"] = {
+        path: c["batchnorm"] for path, c in tube3d_launches.items()}
     # the backward kernel runs on the pretrainer's paths alone: the
     # consistency trainer's flow net is frozen
     backward_by_path = {
@@ -3907,7 +4250,8 @@ def main() -> int:
         # a library call's time on the device alone, where there is a call;
         # the variants' times and K3's backward kernel under names of their own
         extra = [k for k in res if k not in keys and k.startswith(
-            ("backward_", "kernel_ms_", "ms_", "bound_ms_", "library_kernel"))]
+            ("backward_", "kernel_ms_", "ms_", "bound_ms_", "library_", "launches_",
+             "max_err_"))]
         kernels.append({k: res[k] for k in (*keys, *extra)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(report, flush=True)
