@@ -150,7 +150,8 @@ class ArtifactRunner:
         autotuner pick its algorithms, the second runs what was picked and
         settles the allocator's cache (on an H100, after one pass the first
         served bf16 batch took 1.1-5.1x the median of the later ones, after
-        two 0.6-0.95x: `scripts/profile_torch_warmup.py`)."""
+        two 0.6-0.95x; `chip_smoke.py` phase serve holds the first served
+        batch to 2x the median of the rest, `FIRST_BATCH_OVER_MEDIAN`)."""
         for _ in range(2):
             for b in self.buckets:
                 self.run(

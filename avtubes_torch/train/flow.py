@@ -78,6 +78,7 @@ from avtubes_torch.train.hardway import (
 )
 from avtubes_torch.train.state import TrainState, create_train_state
 from avtubes_torch.train.steps import _average_over_ranks, _finish, _fold_time
+from avtubes_torch.train.train3d import draw_view1_flips
 from avtubes_torch.utils.logging import MetricLogger
 
 TAG = "flow"
@@ -210,7 +211,7 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = TAG,
         gen = torch.Generator().manual_seed((cfg.train.seed + 4) * 1_000_003 + epoch)
 
         def step(batch: dict) -> dict:
-            flip1 = (torch.rand(o.batch_size, generator=gen) < 0.5)[mine]
+            flip1 = draw_view1_flips(gen, o.batch_size)[mine]
             return flow_fused_train_step(state, flow_net, batch["clip"], batch["waveform"],
                                          flip1, spec_cfg, flow_loss_weight, watch,
                                          compute_flow)

@@ -57,6 +57,7 @@ from avtubes_torch.train.hardway import (
 )
 from avtubes_torch.train.state import create_train_state
 from avtubes_torch.train.steps import hardway_1frame_fused_step
+from avtubes_torch.train.train3d import draw_view1_flips
 from avtubes_torch.utils.logging import MetricLogger
 
 TAG = "hardway1frm"
@@ -101,7 +102,7 @@ def run(cfg: ExperimentConfig, steps_cap: int = 0, tag: str = TAG,
 
         def step(batch: dict) -> dict:
             frames = batch["clip"][:, 0]
-            flips = (torch.rand(o.batch_size, generator=gen) < 0.5)[mine]
+            flips = draw_view1_flips(gen, o.batch_size)[mine]
             return hardway_1frame_fused_step(state, frames, batch["waveform"], flips,
                                              spec_cfg, watch)
 

@@ -6,7 +6,13 @@
 Needs one CUDA card, `nvcc` and no network; runs in a few minutes.  It
 imports `avtubes_torch` only (never JAX, never the JAX package) and exits
 non-zero — printing no result line — when there is no card, when the
-package is missing, or when any phase fails.  Phases, one JSON line each:
+package is missing, or when any phase fails.  It times the hand-written
+kernels alone (phase kernels); a training step or a served request is
+timed by the benchmark (`python3 -m perfbench.run --workload <cell> ...
+--trace 1`) and by `python -m avtubes_torch.cli.profile`, which phases
+train, int8 and tube3d run for one traced step each and hold to a finite
+time, a written trace and the step's parts, keeping none of its times.
+Phases, one JSON line each:
 
   1. device   the card's name and power limit; TF32 switched off for
               matmuls and convolutions (stated and set), so every
@@ -56,7 +62,7 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               dtype's served requests.  Each micro-batcher warms its runner
               in its own dispatcher thread (cuDNN's autotuner cache is per
               thread): the first served bf16 batch takes at most 2x the
-              median of the others, by CUDA events.
+              median of the others, by CUDA events (the warm-up's guard).
   5. flow     the FlowNetLite pretrainer at full width (224x224 frames,
               batch 20, 28x28x96 features, an 81-channel cost volume):
               `avtubes_torch.cli.flow --train_flow --synthetic` takes a few
@@ -64,7 +70,7 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               launch counters, a checkpoint that restores to the bit-same
               flow), the same steps with the plain cost volume give the same
               loss curve, and training on translating patterns recovers a
-              known shift.  Step time by CUDA events and K3's share of it.
+              known shift.
   6. train    the flagship hard-way trainer at the recipe's full width (two
               ResNet-18 with layer4 at stride 1, 20 clips x 16 frames x two
               views at 224x224, 257x431 spectrograms, TF32 off):
@@ -77,22 +83,18 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               deltas, a bf16 step's BatchNorm running variance equals its
               float32 hand computation with n/(n-1), the same float32 steps
               with the plain versions of K1 and K2 give the same loss curve
-              and masks, and eight bf16 steps on one batch lower the loss.
-              Step time in bf16 by CUDA events and on the host's clock, the
-              loader's wait, peak memory, launches a step, layout
-              conversions, the device's idle share and the step's parts
-              (`scripts/profile_torch_train_step.py`, which also times
-              float32 and gives the step's parts).  The same command with
-              `--remat` takes 2 steps and its eval batch (K1 and K2 under
-              `train_remat`, three checkpoint segments a step, the
+              and masks, and eight bf16 steps on one batch lower the loss;
+              the loader's wait and the CLI's peak memory are recorded.  The
+              same command with `--remat` takes 2 steps and its eval batch
+              (K1 and K2 under `train_remat`, three checkpoint segments a
+              step, the
               checkpoint's keys the plain run's); a bf16 `--remat` step
               against two plain ones from the same state at the recipe
               batch (three segments against none, the loss within their
               spread, every running statistic bit-equal, every gradient
               within their spread or 1e-3 of the tensor's largest entry),
-              and both steps' times by CUDA events and peak memory, in
-              turns, the remat peak below the plain one; the plain turns
-              are the phase's step time.
+              and both steps' peak memory, in turns, the remat peak below
+              the plain one.  `cli.profile --mode train --steps 1`.
   6b. native  the real-data paths on the native IO core, on a tree of 20
               photo-like 480x640 clips of 16 JPEGs with 10 s WAVs: the fused
               clip decode bit-equal to the per-frame path, evaluation frames
@@ -100,9 +102,9 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               the int16 spectrogram within 1 LSB of numpy, the batched
               hard-way loader equal to the per-sample one; `cli.train_hardway
               --data_path` (bf16, 3 steps of 20 clips x 16 frames x 2 views)
-              native and with AVTUBES_TORCH_NO_NATIVE=1 (the loader's wait
-              and the step by events; K1 under `train_real`); phase train's
-              checkpoint evaluated through both hard-way loaders (equal
+              native and with AVTUBES_TORCH_NO_NATIVE=1 (the loader's wait;
+              K1 under `train_real`); phase train's checkpoint evaluated
+              through both hard-way loaders (equal
               cIoU, AUC and masks; K1 + K2 under `eval_batched`); its bf16
               artifact and phase serve's seeded one served JPEG requests
               with and without `--fast_decode` (K1 + K2 under
@@ -120,11 +122,9 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               bars; all 40 convolutions' int32 products (`torch._int_mm`)
               bit-equal to a float64 convolution of the same int8 operands;
               a sample's answer beside a 50x-loud neighbour and in a
-              zero-padded bucket; requests/s beside phase serve's bf16
-              runner serving the same requests in turn, times at batch 8
-              beside bf16, launches a batch, peak memory, and
-              `cli.profile --mode infer` at batch 128 with and without
-              `--quant int8`.
+              zero-padded bucket; launches a batch, `torch._int_mm`'s
+              layouts, peak memory; `cli.profile --mode infer --quant int8
+              --batch_size 128 --steps 1`.
   8. train1f  the 1-frame hard-way trainer at the recipe's width (AVENet,
               batch 20 middle frames at 224x224, 257x431 spectrograms):
               `avtubes_torch.cli.train_hardway_1frame --synthetic` at its
@@ -132,7 +132,7 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               cIoU and AUC in [0,1], a float32 checkpoint `hardway1frm_ep0`,
               K1 once a step and once an eval batch, K2 once an eval batch,
               the overlay JPEGs); the same float32 steps with the plain K1
-              give the same loss curve; step time in both dtypes.
+              give the same loss curve, and bf16 steps give finite losses.
   9. tube3d   the 3D tube trainer at the recipe's width (ResNet3D-18 +
               audio ResNet-18, 20 clips x 16 frames at 224x224, 257x431
               spectrograms): `avtubes_torch.cli.train_3d --synthetic` at its
@@ -145,18 +145,15 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               and the plain K1 + K2 the same per-frame masks (4 clips a step,
               stated in the line); bf16 against float32 on the same seeded
               weights at the bars of tests/test_bf16.py; eight bf16 steps
-              lower the loss;
-              a bf16 step's BatchNorm3d statistics against a float64 hand
-              computation with n/(n-1); bf16 step time, peak memory,
-              launches, layout conversions and idle share (float32's, and
-              the step's parts, by the profile script); the fused
-              BatchNorm's four kernels 20 times a CLI step each and never in
-              the per-frame test.  `cli.train_3d --remat`: one step and the
+              lower the loss; a bf16 step's BatchNorm3d statistics against a
+              float64 hand computation with n/(n-1); the fused BatchNorm's
+              four kernels 20 times a CLI step each and never in the
+              per-frame test.  `cli.train_3d --remat`: one step and the
               per-frame test (K1 and K2 under `train_3d_remat`, two
               checkpoint segments a step, the BatchNorm's forward kernels 40
-              times a step and its backward ones 20); a bf16
-              `--remat` 3D step against plain ones on the checks of phase
-              train, timed in turns.
+              times a step and its backward ones 20); a bf16 `--remat` 3D
+              step against plain ones on the checks of phase train, their
+              peak memory in turns.  `cli.profile --mode train3d --steps 1`.
 
  10. flowcons the flow-guided consistency trainer at the recipe's width
               (AVENet, 20 clips x 16 frames at 224x224, 257x431
@@ -173,8 +170,9 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               0.0; float32 steps with the plain K1 and the plain cost volume
               give the same loss curve (4 clips a step, stated in the line);
               the pretrainer runs one step on real clip pairs (an on-disk
-              dataset of 20 clips, 300 pairs); step time with the flow and
-              without, the flow net's and K3's share, peak memory.
+              dataset of 20 clips, 300 pairs); one bf16 consistency step at
+              the recipe batch launches K3's forward once and its backward
+              never, by their launch counters.
  11. quant    `avtubes_torch.cli.test_quantitative --synthetic` on phase
               train's `hardway16_ep0`, with and without `--use_activation`,
               and with `--tag tube3d` on phase tube3d's `tube3d_ep0` (cIoU,
@@ -205,9 +203,9 @@ package is missing, or when any phase fails.  Phases, one JSON line each:
               one float32 step of the flagship, 1-frame, 3D, consistency and
               pretrain steps at the recipe batch against the plain step
               (loss and statistics within 1e-5, gradients against a float64
-              step where one fits, the collectives counted, both timed by
-              CUDA events); `ShardedArtifactRunner` with one and two
-              replicas on the card and one request through `serve --shard`.
+              step where one fits, the collectives counted);
+              `ShardedArtifactRunner` with one and two replicas on the card
+              and one request through `serve --shard`.
 
 Each phase's line from `serve` on carries `part_seconds` (host clock),
 and a `{"phase": "seconds"}` line gives each phase's seconds.  Then one
@@ -221,6 +219,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import io
 import json
 import math
 import os
@@ -234,7 +233,6 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 
 import numpy as np
 import torch
@@ -248,7 +246,7 @@ from avtubes_torch.data.spectrogram import (
     quantize_int16_waveform,
     tukey_periodic,
 )
-from avtubes_torch.data.transforms import normalize_imagenet
+from avtubes_torch.data.transforms import normalize_imagenet, sample_augment_draws
 from avtubes_torch.evaluation.postprocess import IMG as MASK_SIZE
 from avtubes_torch.evaluation.postprocess import heatmap_to_mask_batch
 from avtubes_torch.models.avenet import AVENet
@@ -310,17 +308,9 @@ TRAIN_EVAL_BATCHES = 1    # the synthetic hard-way test set: 8 frames in one bat
 CURVE_STEPS = 3           # plain-vs-kernel loss curve
 OVERFIT_STEPS = 8
 OVERFIT_LR = 1e-4
-TIMED_STEPS = 3
 REMAT_CLI_STEPS = 2       # `cli.train_hardway --remat`: steps before its eval batch
-REMAT_TIMED_STEPS = 2     # a turn of remat and plain steps, by CUDA events, two turns each
-TUBE_REMAT_TIMED_STEPS = 2  # the same for the 3D step (float32's 1.61 s step and the parts
-#                             are left to the profile script)
 REMAT_GRAD_RTOL = 1e-3    # a remat gradient vs the plain one: this share of the tensor's largest
 #                           entry, or the spread of two plain backward passes if larger
-
-# `cli/profile --mode infer` in the int8 phase
-PROFILE_BATCH = 128
-PROFILE_STEPS = 3
 
 # the 1-frame trainer's recipe shapes
 T1F_BATCH = 20            # middle frames a step
@@ -352,7 +342,6 @@ FLOWCONS_BATCH = 20       # clips a step: B·(T−1) = 300 frame pairs through t
 FLOWCONS_STEPS = 2        # CLI steps
 FLOWCONS_WEIGHT = 0.1     # --flow_loss_weight
 FLOWCONS_CURVE_BATCH = 4  # clips a step of the plain-vs-kernel curve (time)
-FLOWCONS_TIMED_STEPS = 3
 CLIP_PAIR_VIDEOS = 20     # the pretrainer on real clip pairs: one batch of 20 clips
 
 # the evaluation CLIs
@@ -364,10 +353,6 @@ VISUALIZE_SAMPLES = 4     # visualize's synthetic overlays
 # (cuDNN's autotuner cache is per thread): the first served bf16 batch takes
 # at most this multiple of the median of the batches after it
 FIRST_BATCH_OVER_MEDIAN = 2.0
-# phase serve's bf16 requests/s while the runner was warmed in the main
-# thread and the dispatcher thread tuned every convolution again (NVIDIA H100
-# 80GB HBM3, 700 W)
-REQUESTS_PER_S_BF16_PR9 = "8.5-19.6"
 
 # phase native: the real-data paths on the port's native host IO core
 NATIVE_CLIPS = 20            # clips of 16 photo-like 480x640 JPEGs with 10 s WAVs, and
@@ -497,6 +482,20 @@ def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     by_ops = operations / PEAK_FP32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def recipe_batch(dev: torch.device, batch: int, frames: int, image_size: int,
+                 spec_cfg: SpectrogramConfig, seed: int = 0):
+    """(clips uint8 (B,T,S,S,3), int16 waveforms (B, num_samples), draws),
+    made on the card from `seed`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    clips = torch.randint(0, 256, (batch, frames, image_size, image_size, 3),
+                          generator=g, device=dev, dtype=torch.uint8)
+    waves = (torch.randn(batch, spec_cfg.num_samples, generator=g, device=dev) * 0.1
+             ).clamp(-1, 1).mul(32768.0).round().clamp(-32768, 32767).to(torch.int16)
+    draws = sample_augment_draws(batch, torch.Generator().manual_seed(seed), "random",
+                                 image_size)
+    return clips, waves, draws
 
 
 # ------------------------------------------------------------------ phases
@@ -990,7 +989,6 @@ def tube_bn_sites(dev: torch.device, batch: int = TUBE_BATCH, frames: int = TUBE
     from avtubes_torch.models.fullmodel import FullModel
     from avtubes_torch.train.state import create_train_state
     from avtubes_torch.train.steps import train3d_fused_step
-    from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
     model = FullModel(generator=torch.Generator().manual_seed(SEED), compute_dtype="bfloat16",
@@ -1336,10 +1334,8 @@ def serve_http(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray,
 
     try:
         batcher.wait_warm(timeout=600.0)
-        t0 = time.monotonic()
         with ThreadPoolExecutor(N_CLIENTS) as pool:
             answers = list(pool.map(post, bodies))
-        wall = time.monotonic() - t0
         with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
         with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
@@ -1361,8 +1357,8 @@ def serve_http(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray,
     ref_masks, ref_heat = runner.run(frames, decoded)
     # heatmaps cross the wire rounded to 6 decimals
     out = compare(masks, heat, ref_masks, ref_heat, "http vs runner")
-    return {"http": "ok", "http_requests_per_s": N_REQUESTS / wall,
-            "http_batch_hist": stats["batch_hist"], **{f"http_{k}": v for k, v in out.items()}}
+    return {"http": "ok", "http_batch_hist": stats["batch_hist"],
+            **{f"http_{k}": v for k, v in out.items()}}
 
 
 class EventTimedRunner:
@@ -1388,14 +1384,13 @@ class EventTimedRunner:
 
 
 def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray,
-                   shards: int = 1
-                   ) -> tuple[np.ndarray, np.ndarray, dict, float, dict[str, int]]:
+                   shards: int = 1) -> tuple[np.ndarray, np.ndarray, dict, dict[str, int]]:
     """The main path: concurrent requests through the micro-batcher (which
     first warms the runner in its own thread), with K1's and K2's counts set
     to 0 just before and read just after: each launched once a batch on
     each of the runner's `shards` replicas.  Returns (masks, heatmaps,
     batcher stats with `warmup_s` and each batch's `batch_ms_by_events`,
-    wall seconds from the end of the warm-up, launches)."""
+    launches)."""
     timed_runner = EventTimedRunner(runner)
     batcher = MicroBatcher(timed_runner, window_ms=5.0)
     try:
@@ -1403,15 +1398,13 @@ def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray
         k1.log_spectrogram_cuda.launches = 0
         k2.median_mask_cuda.launches = 0
         with ThreadPoolExecutor(N_CLIENTS) as pool:
-            # the clients' threads exist before the clock starts: the first
-            # batch times the server, not the harness spawning its threads
+            # the clients' threads exist before the first request: the first
+            # batch is the server's, not the harness spawning its threads
             ready = threading.Barrier(N_CLIENTS)
             list(pool.map(lambda _: ready.wait(timeout=60), range(N_CLIENTS)))
-            t0 = time.monotonic()
             answers = list(pool.map(
                 lambda i: batcher.submit(frames[i], waves[i], timeout=120.0),
                 range(N_REQUESTS)))
-            wall = time.monotonic() - t0
         stats = {**batcher.snapshot(), "warmup_s": warm_s,
                  "batch_ms_by_events": timed_runner.batch_ms}
     finally:
@@ -1428,7 +1421,7 @@ def serve_requests(runner: ArtifactRunner, frames: np.ndarray, waves: np.ndarray
     check_outputs(masks, heat, N_REQUESTS)
     require(float(heat.std()) > 0, "heatmaps are constant")
     require(0.3 < float(masks.mean()) < 0.7, masks.mean())  # a median split
-    return masks, heat, stats, wall, launches
+    return masks, heat, stats, launches
 
 
 def bf16_vs_fp32(masks: np.ndarray, heat: np.ndarray, ref_masks: np.ndarray,
@@ -1490,9 +1483,9 @@ def phase_serve(dev: torch.device, report: str
     lap("export_load_warmup")
 
     # ---- the main path in bf16 (the export's default), then in float32
-    masks_bf16, heat_bf16, stats_bf16, wall_bf16, launches_bf16 = serve_requests(
-        runner_bf16, frames, waves)
-    masks, heat, stats, wall, launches = serve_requests(runner, frames, waves)
+    masks_bf16, heat_bf16, stats_bf16, launches_bf16 = serve_requests(runner_bf16, frames,
+                                                                       waves)
+    masks, heat, stats, launches = serve_requests(runner, frames, waves)
     # the dispatcher thread warmed up and tuned cuDNN (its cache is per
     # thread): the first served batch is no slower than the ones after it
     first_over_median = {}
@@ -1541,55 +1534,19 @@ def phase_serve(dev: torch.device, report: str
     require(nb_heat <= 1e-5 and nb_flips <= MASK_FLIPS, (nb_heat, nb_flips))
     lap("vs_plain_and_neighbours")
 
-    # ---- where the time goes at batch 8 (CUDA events, stage by stage)
-    net = runner.pipeline.model
-    with torch.inference_mode():
-        hm = net(nf, spec).heatmap
-        stage_ms = {
-            "normalize_imagenet": cuda_ms(lambda: normalize_imagenet(f8)),
-            "log_spectrogram_K1": cuda_ms(lambda: log_spectrogram(w8, cfg)),
-            "avenet_forward": cuda_ms(lambda: net(nf, spec)),
-            "heatmap_to_mask_K2_and_resize": cuda_ms(lambda: heatmap_to_mask_batch(hm)),
-            "pipeline_total": cuda_ms(lambda: runner.pipeline(f8, w8)),
-        }
-        stage_ms_bf16 = {
-            "avenet_forward": cuda_ms(lambda: runner_bf16.pipeline.model(nf, spec)),
-            "pipeline_total": cuda_ms(lambda: runner_bf16.pipeline(f8, w8)),
-        }
-        # the two kernels' stages on the device alone (see `queued_ms`)
-        stage_kernel_ms = {
-            "log_spectrogram_K1": queued_ms(lambda: log_spectrogram(w8, cfg)),
-            "heatmap_to_mask_K2_and_resize": queued_ms(lambda: heatmap_to_mask_batch(hm)),
-        }
-    # what batching buys: one `runner.run` per bucket on the host's clock
-    # (staging, copies both ways and the pipeline; ends synchronised)
-    run_ms = {}
-    for b in runner.buckets:
-        runner.run(frames[:b], waves[:b])
-        t0 = time.monotonic()
-        for _ in range(10):
-            runner.run(frames[:b], waves[:b])
-        run_ms[str(b)] = (time.monotonic() - t0) * 1e3 / 10
-    lap("timing")
-
     http = serve_http(runner, frames, waves, cfg.samplerate)
     lap("http")
     torch.backends.cudnn.benchmark = False     # the other phases run without it
     emit("serve", card=report, requests=N_REQUESTS, clients=N_CLIENTS,
          artifact_bytes=len(blob), load_and_warmup_s=round(warm_s, 2),
-         requests_per_s_bf16=N_REQUESTS / wall_bf16,
-         requests_per_s_bf16_before_the_warmup_repair=REQUESTS_PER_S_BF16_PR9,
          batch_hist_bf16=stats_bf16["batch_hist"],
          batch_ms_by_events_bf16=stats_bf16["batch_ms_by_events"],
          batch_ms_by_events_fp32=stats["batch_ms_by_events"],
          first_batch_over_median_of_the_rest=first_over_median,
          dispatcher_warmup_s={"bfloat16": stats_bf16["warmup_s"], "float32": stats["warmup_s"]},
-         launches_bf16=launches_bf16, bf16_vs_fp32=vs_fp32, stage_ms_batch8_bf16=stage_ms_bf16,
-         requests_per_s=N_REQUESTS / wall, batch_hist=stats["batch_hist"],
+         launches_bf16=launches_bf16, bf16_vs_fp32=vs_fp32, batch_hist=stats["batch_hist"],
          launches=launches, vs_plain=vs_plain,
          neighbour_heatmap_max_abs_diff=nb_heat, neighbour_max_flips=nb_flips,
-         stage_ms_batch8=stage_ms, stage_kernel_ms_batch8=stage_kernel_ms,
-         runner_run_ms_by_bucket_host_clock=run_ms,
          peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20, **http,
          part_seconds=lap.seconds)
     return {"bfloat16": launches_bf16, "float32": launches}, runner_bf16
@@ -1652,7 +1609,7 @@ def shift_recovery(dev: torch.device) -> dict:
     raise AssertionError(f"shift not recovered in {SHIFT_MAX_STEPS} steps; reached {reached}")
 
 
-def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> dict[str, int]:
+def phase_flow(dev: torch.device, report: str, shared: str) -> dict[str, int]:
     """Returns K3's forward and backward launches on the pretrainer's steps;
     leaves its `flownet_ep0` in `shared` for phase flowcons, and its metric
     log for phase multigpu."""
@@ -1662,9 +1619,7 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> d
     from avtubes_torch.train.flow_pretrain import (
         create_flow_state,
         epe,
-        flow_pretrain_step,
         run_pretrain,
-        translating_pairs,
         warped_pairs,
     )
 
@@ -1726,33 +1681,10 @@ def phase_flow(dev: torch.device, report: str, k3_times: dict, shared: str) -> d
     # ---- (c) training recovers a known shift
     recovered = shift_recovery(dev)
     lap("shift_recovery")
-
-    # ---- step time at the recipe batch, and K3's share of it
-    im1, im2, _ = translating_pairs(np.random.RandomState(SEED), FLOW_BATCH, IMAGE_SIZE)
-    im1, im2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
-    state = create_flow_state(torch.Generator().manual_seed(SEED), device=dev)
-    plain_state = create_flow_state(torch.Generator().manual_seed(SEED), device=dev,
-                                    impl="plain")
-    with torch.no_grad():
-        forward_ms = cuda_ms(lambda: state.model(im1, im2), iters=10)
-    step_ms = cuda_ms(lambda: flow_pretrain_step(state, im1, im2), iters=10)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for _ in range(10):
-        flow_pretrain_step(state, im1, im2)
-    torch.cuda.synchronize()
-    step_host_ms = (time.monotonic() - t0) * 1e3 / 10
-    plain_step_ms = cuda_ms(lambda: flow_pretrain_step(plain_state, im1, im2), iters=10)
-    k3_ms = k3_times["ms_from_channels_first"] + k3_times["backward_ms"]
-    lap("timing")
     emit("flow", card=report, image_size=IMAGE_SIZE, batch=FLOW_BATCH,
          cli_steps=FLOW_STEPS, cli_seconds_host_clock=round(cli_s, 2),
          launches=launches, losses=losses, plain_losses=plain_losses,
          loss_max_rel_diff_vs_plain=loss_rel, final=final, shift_recovery=recovered,
-         flownet_forward_ms=forward_ms, step_ms=step_ms,
-         step_ms_host_clock=step_host_ms, step_ms_plain_cost_volume=plain_step_ms,
-         k3_forward_with_layout_copy_ms=k3_times["ms_from_channels_first"],
-         k3_backward_ms=k3_times["backward_ms"], k3_share_of_step=k3_ms / step_ms,
          part_seconds=lap.seconds,
          peak_device_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
     return launches
@@ -1810,46 +1742,6 @@ def bn_hand_check(bn, step, views: int, layout: torch.memory_format) -> dict:
     return {"recipe_step": step_err, "n18_unbiased": small_err, "n18_if_biased": biased_err}
 
 
-def step_profile(step, step_ms: float) -> dict:
-    """The profile of one step more (`scripts/profile_torch_train_step.py`),
-    and the device's idle share and K1's share against `step_ms`, the step
-    time by CUDA events."""
-    from profile_torch_train_step import profile_train_step
-
-    profiled = profile_train_step(step, steps=1, warm=False)
-    return {"profile": profiled,
-            "device_idle_share_by_events": 1.0 - profiled["device_busy_ms_per_step"] / step_ms,
-            "k1_share_of_step": profiled["k1_kernel_ms_per_step"] / step_ms}
-
-
-def timed(step, dev: torch.device, n: int) -> dict:
-    """Step time by CUDA events (each of the same `n` steps, after a warm
-    one, and their mean) and on the host's clock, the caching allocator's
-    `cudaMalloc` calls and retries in those steps (where this torch counts
-    them), the peak memory of a step, and `step_profile`."""
-    step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_stats(dev)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    t0 = time.monotonic()
-    events[0].record()
-    for i in range(n):
-        step()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    host_ms = (time.monotonic() - t0) * 1e3 / n
-    each = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    step_ms = sum(each) / n
-    after = torch.cuda.memory_stats(dev)
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    return {"train_step_ms": step_ms, "train_step_ms_each": each,
-            "train_step_ms_host_clock": host_ms, "steps_timed": n,
-            **{f"{k}_in_timed_steps": after[k] - before[k]
-               for k in ("num_device_alloc", "num_alloc_retries") if k in after},
-            "max_memory_allocated_gib_step": peak_gib, **step_profile(step, step_ms)}
-
-
 def k3_counts() -> dict[str, int]:
     return {"forward": k3.correlation_forward_cuda.launches,
             "backward": k3.correlation_backward_cuda.launches}
@@ -1892,6 +1784,45 @@ def check_checkpoint(run_dir: str, tag: str) -> list[str]:
                             else torch.float32) for k, t in saved.items()),
             "a bf16 run's checkpoint must hold float32 parameters and statistics")
     return ckpts
+
+
+#: the parts of a training step that `cli.profile` prints, in order
+STEP_SPANS = ["train.step", "train.input", "train.forward", "train.backward",
+              "train.optimizer"]
+
+
+def profile_cli(mode: str, *extra: str) -> dict:
+    """`cli.profile --mode <mode> --steps 1 <extra>` on the card, its
+    printout sent to stderr and nothing of it timed here: its step's time
+    is finite, its trace is written and holds the card's kernels, and a
+    training mode prints each part of the step once with a device and an
+    idle column (the trace read back).  Returns the trace's kernel count
+    and the parts printed."""
+    from avtubes_torch.cli import profile
+
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(printed):
+        times = profile.main(["--mode", mode, "--steps", "1", "--logdir", tmp, *extra])
+        written = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        require(len(written) == 1, (mode, os.listdir(tmp)))
+        with open(os.path.join(tmp, written[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+    sys.stderr.write(printed.getvalue())
+    require(len(times) == 1 and math.isfinite(times[0]) and times[0] > 0, (mode, times))
+    kernels = sum(e.get("ph") == "X" and e.get("cat") == "kernel" for e in events)
+    require(kernels > 0, f"cli.profile --mode {mode}: no kernel in its trace")
+    lines = printed.getvalue().splitlines()
+    head = [i for i, line in enumerate(lines) if line.startswith("span ")]
+    rows = {line.split()[0]: line.split()[1:] for line in lines[head[0] + 1:]
+            if line.startswith("train.")} if head else {}
+    if mode == "infer":
+        require(not rows, (mode, rows))
+    else:
+        require(list(rows) == STEP_SPANS and all(
+            count == "1" and "-" not in cols and all(math.isfinite(float(v)) for v in cols)
+            for count, *cols in rows.values()), (mode, rows))
+    return {"argv": ["--mode", mode, "--steps", "1", *extra], "trace_kernels": kernels,
+            "spans": list(rows)}
 
 
 def plain_launches_nothing(before: tuple[int, int]) -> None:
@@ -1977,16 +1908,13 @@ def remat_against_plain(model: torch.nn.Module, step, optim, segments: int) -> d
                 torch.equal(grads2[n], g) for n, g in grads.items()))}
 
 
-def remat_timing(model: torch.nn.Module, step, optim, dev: torch.device, steps: int) -> dict:
-    """Step time by CUDA events and on the host's clock, and peak memory, of
-    a `--remat` copy of `model` and of a plain copy, in turns (plain, remat,
-    plain, remat; `steps` each, after one warm step each); the peak is that
-    of the turn, absolute and over the memory held before it, and the remat
-    turns' must stay below the plain ones'.  The plain turns are the phase's
-    step time; `step_profile` adds the plain step's profile and idle share."""
+def remat_peaks(model: torch.nn.Module, step, optim, dev: torch.device) -> dict:
+    """Peak memory of a step of a `--remat` copy of `model` and of a plain
+    copy, in turns (plain, remat, plain, remat; one step each, after one warm
+    step each); the peak is that of the turn, absolute and over the memory
+    held before it, and the remat turns' must stay below the plain ones'."""
     states = {"plain": _step_copy(model, False, optim), "remat": _step_copy(model, True, optim)}
-    out = {k: {"step_ms": [], "step_ms_host_clock": [], "peak_gib": [],
-               "peak_gib_over_start": []} for k in states}
+    out = {k: {"peak_gib": [], "peak_gib_over_start": []} for k in states}
     for st in states.values():
         step(st)
     for _ in range(2):
@@ -1994,25 +1922,13 @@ def remat_timing(model: torch.nn.Module, step, optim, dev: torch.device, steps: 
             torch.cuda.synchronize()
             start = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-            t0 = time.monotonic()
-            events[0].record()
-            for i in range(steps):
-                step(st)
-                events[i + 1].record()
+            step(st)
             torch.cuda.synchronize()
-            out[name]["step_ms_host_clock"].append((time.monotonic() - t0) * 1e3 / steps)
             peak = torch.cuda.max_memory_allocated(dev)
-            out[name]["step_ms"] += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
             out[name]["peak_gib"].append(peak / 2 ** 30)
             out[name]["peak_gib_over_start"].append((peak - start) / 2 ** 30)
-    for v in out.values():
-        v["step_ms_mean"] = float(np.mean(v["step_ms"]))
     require(max(out["remat"]["peak_gib_over_start"]) < min(out["plain"]["peak_gib_over_start"]),
             ("--remat did not lower the step's peak", out))
-    out["remat_over_plain_step_ms"] = out["remat"]["step_ms_mean"] / out["plain"]["step_ms_mean"]
-    out["plain"].update(step_profile(lambda: step(states["plain"]),
-                                     out["plain"]["step_ms_mean"]))
     return out
 
 
@@ -2026,8 +1942,6 @@ def phase_train(dev: torch.device, report: str, shared: str) -> dict[str, dict[s
     from avtubes_torch.train.evaluate import _hardway_eval_masks
     from avtubes_torch.train.state import create_train_state
     from avtubes_torch.train.steps import hardway_fused_train_step
-
-    from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
     lap = Laps()
@@ -2131,20 +2045,20 @@ def phase_train(dev: torch.device, report: str, shared: str) -> dict[str, dict[s
     lap("overfit_and_bn_by_hand")
 
     # ---- (e) a bf16 --remat step against plain steps from the same state,
-    # at the recipe batch; their times and peaks in turns
+    # at the recipe batch; their peaks in turns
     def recipe_step(st):
         return hardway_fused_train_step(st, *batches[1], cfg, image_size=IMAGE_SIZE)
 
     remat = remat_against_plain(state_bf16.model, recipe_step, OptimConfig(), 3)
     lap("remat_vs_plain")
-
-    # ---- step time at the recipe batch in bf16 (the plain turns), memory,
-    # launches and idle share (float32's, 371-374 ms over PRs 6-8, is left to
-    # the profile script)
-    remat["timing"] = remat_timing(state_bf16.model, recipe_step, OptimConfig(), dev,
-                                   REMAT_TIMED_STEPS)
+    remat["peaks"] = remat_peaks(state_bf16.model, recipe_step, OptimConfig(), dev)
     torch.cuda.empty_cache()
-    lap("timing")
+    lap("remat_peaks")
+
+    # ---- (f) the operator's profiler on this step, one traced step
+    profiled = profile_cli("train")
+    torch.cuda.empty_cache()
+    lap("profile_cli")
     waits = [r["loader_wait_ms"] for r in steps]
     emit("train", card=report, batch=TRAIN_BATCH, frames=TRAIN_FRAMES, views=2,
          image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
@@ -2157,13 +2071,12 @@ def phase_train(dev: torch.device, report: str, shared: str) -> dict[str, dict[s
          loader_wait_ms_per_step=waits,
          loader_wait_ms_after_the_first=float(np.mean(waits[1:])),
          max_memory_allocated_gib_cli=cli_peak_gib,
-         train_step_ms=remat["timing"]["plain"]["step_ms_mean"],
          remat_cli={"steps": REMAT_CLI_STEPS, "losses": remat_losses,
                     "launches": remat_launches, "segments": remat_segments[0],
                     "seconds_host_clock": round(remat_cli_s, 2),
                     "max_memory_allocated_gib": remat_peak_gib,
                     "hardway_ciou": remat_final["hardway_ciou"]},
-         remat_bf16=remat, part_seconds=lap.seconds)
+         remat_bf16=remat, profile_cli=profiled, part_seconds=lap.seconds)
     return {"train": launches, "train_remat": remat_launches}
 
 
@@ -2258,31 +2171,6 @@ def launches_per_batch(pipeline, f8: torch.Tensor, w8: torch.Tensor) -> int:
         torch.cuda.synchronize()
     return int(sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0))
-
-
-@contextlib.contextmanager
-def event_timed_train_steps(times: list[float]):
-    """The flagship trainer's step, each call timed by CUDA events (from its
-    first enqueued work to its last) while the context is open."""
-    from avtubes_torch.train import hardway
-
-    real = hardway.hardway_fused_train_step
-
-    def timed(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*args, **kwargs)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-        return out
-
-    hardway.hardway_fused_train_step = timed
-    try:
-        yield
-    finally:
-        hardway.hardway_fused_train_step = real
 
 
 def write_photo_tree(root: str) -> list[str]:
@@ -2389,7 +2277,7 @@ def serve_jpegs(runner: ArtifactRunner, bodies: list[dict]) -> dict[bool, tuple]
     decoded exactly and then with `--fast_decode`, two servers in turn on
     one micro-batcher (one warm-up); K1's and K2's counts set to 0 before
     each turn's requests and read after them.  Returns, by `fast_decode`,
-    (masks, heatmaps, requests/s, launches, the turn's `/stats`)."""
+    (masks, heatmaps, launches, the turn's `/stats`)."""
     from avtubes_torch.cli.serve import LocalizerHTTPServer, build_handler
 
     batcher = MicroBatcher(runner, window_ms=5.0)
@@ -2415,10 +2303,8 @@ def serve_jpegs(runner: ArtifactRunner, bodies: list[dict]) -> dict[bool, tuple]
             try:
                 before = batcher.snapshot()
                 zero_counts()
-                t0 = time.monotonic()
                 with ThreadPoolExecutor(N_CLIENTS) as pool:
                     answers = list(pool.map(post, bodies))
-                wall = time.monotonic() - t0
                 launches = {"stft": k1.log_spectrogram_cuda.launches,
                             "median_select": k2.median_mask_cuda.launches}
                 with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
@@ -2445,7 +2331,7 @@ def serve_jpegs(runner: ArtifactRunner, bodies: list[dict]) -> dict[bool, tuple]
                               for a in answers])
             heat = np.asarray([a["heatmap"] for a in answers], np.float32)
             check_outputs(masks, heat, len(bodies))
-            out[fast_decode] = (masks, heat, len(bodies) / wall, launches, stats)
+            out[fast_decode] = (masks, heat, launches, stats)
     finally:
         batcher.close()
     return out
@@ -2492,12 +2378,10 @@ def phase_native(dev: torch.device, report: str, shared: str,
                     "--image_size", str(IMAGE_SIZE), "--epochs", "1",
                     "--steps", str(NATIVE_STEPS), "--seed", str(SEED),
                     "--summaries_dir", run_dir]
-            step_ms: list[float] = []
             if decode == "python":
                 os.environ[native.KILL_SWITCH] = "1"
             try:
-                with event_timed_train_steps(step_ms):
-                    final, counts, cli_s, _ = run_cli(train_cli.main, args)
+                final, counts, cli_s, _ = run_cli(train_cli.main, args)
             finally:
                 os.environ.pop(native.KILL_SWITCH, None)
             with open(os.path.join(run_dir, "hardway16.metrics.jsonl")) as fh:
@@ -2509,7 +2393,6 @@ def phase_native(dev: torch.device, report: str, shared: str,
             require(counts == {"stft": NATIVE_STEPS + 1, "median_select": 1}, (decode, counts))
             runs[decode] = {"losses": losses, "launches": counts,
                             "loader_wait_ms_per_step": [r["loader_wait_ms"] for r in steps],
-                            "train_step_ms_by_events": step_ms,
                             "cli_seconds_host_clock": cli_s,
                             "hardway_ciou": final["hardway_ciou"],
                             "hardway_auc": final["hardway_auc"]}
@@ -2532,10 +2415,7 @@ def phase_native(dev: torch.device, report: str, shared: str,
             require(isinstance(loader, BatchedHardwayLoader) == (mode == "batched"), mode)
             batches[mode] = list(loader.epoch(0))
             zero_counts()
-            t0 = time.monotonic()
             evals[mode] = evaluate_hardway(model, loader, d, cfg, gt_lookup)
-            seconds = time.monotonic() - t0
-            evals[mode]["clips_per_s"] = evals[mode]["hardway_n"] / seconds
             evals[mode]["launches"] = {"stft": k1.log_spectrogram_cuda.launches,
                                        "median_select": k2.median_mask_cuda.launches}
         launches["eval_batched"] = evals["batched"]["launches"]
@@ -2568,12 +2448,11 @@ def phase_native(dev: torch.device, report: str, shared: str,
         fast = {}
         for name, r in (("checkpoint", runner), ("seeded", runner_bf16)):
             served = serve_jpegs(r, bodies)
-            (m0, h0, rps0, _, _), (m1, h1, rps1, counts, st) = served[False], served[True]
+            (m0, h0, _, _), (m1, h1, counts, st) = served[False], served[True]
             iou = (m0 * m1).sum(axis=(1, 2)) / np.maximum(((m0 + m1) > 0).sum(axis=(1, 2)), 1)
             pearson = np.array([np.corrcoef(a.ravel(), b.ravel())[0, 1]
                                 for a, b in zip(h0, h1)])
             fast[name] = {
-                "http_requests_per_s_exact": rps0, "http_requests_per_s_fast_decode": rps1,
                 "mask_iou_mean": float(iou.mean()), "mask_iou_min": float(iou.min()),
                 "heatmap_pearson_mean": float(pearson.mean()),
                 "heatmap_pearson_min": float(pearson.min()),
@@ -2598,12 +2477,9 @@ def phase_native(dev: torch.device, report: str, shared: str,
     return launches
 
 
-def phase_int8(dev: torch.device, report: str, shared: str,
-               runner_bf16: ArtifactRunner) -> dict[str, int]:
-    """Returns K1's and K2's launches on the int8 served requests.
-    `runner_bf16` (phase serve's) serves the same requests in turns with
-    the int8 runner, for requests/s on a warm process."""
-    from avtubes_torch.cli import export_model, profile
+def phase_int8(dev: torch.device, report: str, shared: str) -> dict[str, int]:
+    """Returns K1's and K2's launches on the int8 served requests."""
+    from avtubes_torch.cli import export_model
 
     cfg = SpectrogramConfig()
     lap = Laps()
@@ -2649,16 +2525,7 @@ def phase_int8(dev: torch.device, report: str, shared: str,
                                for i in range(0, N_REQUESTS, MAX_BATCH)])
 
     # ---- (b) the main path: concurrent requests through the micro-batcher
-    masks, heat, stats, wall, launches = serve_requests(runner, frames, waves)
-    # requests/s in turns, int8 and phase serve's bf16 runner: the bf16 turns
-    # without the autotuner, whose cache is per thread (each micro-batcher's
-    # new thread would tune every convolution again, and the turn would time
-    # the tuning; a served bf16 batch is as fast without it, PERF.md §7)
-    torch.backends.cudnn.benchmark = False
-    walls = {"bfloat16": [serve_requests(runner_bf16, frames, waves)[3]], "int8": [wall]}
-    walls["int8"].append(serve_requests(runner, frames, waves)[3])
-    walls["bfloat16"].append(serve_requests(runner_bf16, frames, waves)[3])
-    torch.backends.cudnn.benchmark = True
+    masks, heat, stats, launches = serve_requests(runner, frames, waves)
     vs = {dtype: quant_vs(heat, answers(r), dtype) for dtype, r in refs.items()}
     lap("requests")
 
@@ -2684,51 +2551,30 @@ def phase_int8(dev: torch.device, report: str, shared: str,
     require(nb_heat <= INT8_NEIGHBOUR_ATOL and nb_flips <= MASK_FLIPS, (nb_heat, nb_flips))
     lap("products_and_neighbours")
 
-    # ---- (e) times at batch 8 beside bf16 on the same weights (10 calls each:
-    # the host's launch rate sets them), launches a batch, peak memory
-    bf16 = refs["bfloat16"]
-    with torch.inference_mode():
-        stage_ms = {
-            "int8": {"avenet_forward": cuda_ms(lambda: net(nf, spec), iters=10),
-                     "pipeline_total": cuda_ms(lambda: runner.pipeline(f8, w8), iters=10)},
-            "bfloat16": {"avenet_forward": cuda_ms(lambda: bf16.model(nf, spec), iters=10),
-                         "pipeline_total": cuda_ms(lambda: bf16(f8, w8), iters=10)}}
+    # ---- (e) launches a batch, `torch._int_mm`'s layouts, peak memory
     launches_batch8 = launches_per_batch(runner.pipeline, f8, w8)
     layouts = int_mm_layouts(dev)
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    lap("timing")
-    # `cli/profile --mode infer` at batch 128, bf16 and int8
-    profiled = {}
-    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
-        for name, extra in (("bfloat16", []), ("int8", ["--quant", "int8"])):
-            torch.cuda.reset_peak_memory_stats()
-            times = profile.main(["--mode", "infer", "--steps", str(PROFILE_STEPS),
-                                  "--batch_size", str(PROFILE_BATCH), "--logdir",
-                                  os.path.join(tmp, name), *extra])
-            med = sorted(times)[len(times) // 2]
-            profiled[name] = {"median_ms": med * 1e3, "clips_per_s": PROFILE_BATCH / med,
-                              "step_ms": [t * 1e3 for t in times],
-                              "peak_device_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
-    lap("profile_batch128")
+    lap("launches_and_layouts")
+
+    # ---- (f) the operator's profiler on the int8 pipeline at batch 128, the
+    # only int8 batch above the served MAX_BATCH, one traced step
+    profiled = profile_cli("infer", "--quant", "int8", "--batch_size", "128")
+    lap("profile_cli")
     torch.backends.cudnn.benchmark = False     # the other phases run without it
     emit("int8", card=report, checkpoint="hardway16_ep0", compute_dtype="bfloat16",
          artifact_bytes=len(blob), validation=validation,
-         requests=N_REQUESTS, clients=N_CLIENTS, requests_per_s_int8=N_REQUESTS / wall,
-         requests_per_s_in_turns={k: [N_REQUESTS / w for w in v] for k, v in walls.items()},
+         requests=N_REQUESTS, clients=N_CLIENTS,
          batch_hist_int8=stats["batch_hist"], launches=launches,
          int8_vs_bf16=vs["bfloat16"], int8_vs_fp32=vs["float32"], products=products,
          neighbour_heatmap_max_abs_diff=nb_heat, neighbour_max_flips=nb_flips,
-         stage_ms_batch8=stage_ms, launches_per_batch8_int8=launches_batch8,
-         int_mm_layouts=layouts,
-         peak_device_mib=peak_mib, profile_infer_batch128=profiled,
-         part_seconds=lap.seconds)
+         launches_per_batch8_int8=launches_batch8, int_mm_layouts=layouts,
+         peak_device_mib=peak_mib, profile_cli=profiled, part_seconds=lap.seconds)
     return launches
 
 
 def one_frame_batch(dev: torch.device, seed: int):
     """(middle frames (B, S, S, 3) uint8, int16 waveforms, flips) on the card."""
-    from profile_torch_train_step import recipe_batch
-
     clips, waves, draws = recipe_batch(dev, T1F_BATCH, 1, IMAGE_SIZE, SpectrogramConfig(),
                                        seed=seed)
     return clips[:, 0].contiguous(), waves, draws.flip1
@@ -2773,30 +2619,21 @@ def phase_train1f(dev: torch.device, report: str, shared: str) -> dict[str, int]
         return [float(hardway_1frame_fused_step(state, f, w, fl, cfg, impl=impl)["loss"])
                 for f, w, fl in batches], state
 
-    kernel_losses, state = curve("kernel")
+    kernel_losses, _ = curve("kernel")
     before_plain = (k1.log_spectrogram_cuda.launches, k2.median_mask_cuda.launches)
     plain_losses, _ = curve("plain")
     plain_launches_nothing(before_plain)
     rel = float(np.max(np.abs(np.array(kernel_losses) - plain_losses) / np.abs(plain_losses)))
     require(rel <= TRAIN_LOSS_RTOL, (kernel_losses, plain_losses))
-    bf16_losses, state_bf16 = curve("kernel", "bfloat16")
+    bf16_losses, _ = curve("kernel", "bfloat16")
     require(np.isfinite(bf16_losses).all(), bf16_losses)
     lap("curves")
-
-    timed_by_dtype = {
-        dtype: timed(lambda st=st: hardway_1frame_fused_step(st, *batches[0], cfg), dev,
-                     TIMED_STEPS)
-        for dtype, st in (("bfloat16", state_bf16), ("float32", state))}
-    lap("timing")
     emit("train1f", card=report, batch=T1F_BATCH, image_size=IMAGE_SIZE,
          spectrogram=list(cfg.shape), cli_dtype="bfloat16", cli_steps=T1F_STEPS,
          cli_seconds_host_clock=round(cli_s, 2), launches=launches, losses=losses, final=final,
          checkpoints=ckpts, images=images, max_memory_allocated_gib_cli=cli_peak_gib,
          curve_dtype="float32", curve_kernel=kernel_losses, curve_plain=plain_losses,
-         curve_max_rel_diff_vs_plain=rel, curve_bf16=bf16_losses,
-         train_step_ms=timed_by_dtype["bfloat16"]["train_step_ms"],
-         train_step_ms_float32=timed_by_dtype["float32"]["train_step_ms"],
-         by_dtype=timed_by_dtype, part_seconds=lap.seconds)
+         curve_max_rel_diff_vs_plain=rel, curve_bf16=bf16_losses, part_seconds=lap.seconds)
     return launches
 
 
@@ -2812,7 +2649,6 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
     from avtubes_torch.train.evaluate import _perframe_masks
     from avtubes_torch.train.state import create_train_state
     from avtubes_torch.train.steps import eval_mode, train3d_fused_step
-    from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
     torch.cuda.empty_cache()
@@ -2927,7 +2763,7 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
     lap("overfit_and_bn_by_hand")
 
     # ---- (f) a bf16 --remat step against plain steps from the same state, at
-    # the recipe batch; their times and peaks in turns
+    # the recipe batch; their peaks in turns
     def recipe_step(st):
         return train3d_fused_step(st, clips, waves, draws.flip1, cfg)
 
@@ -2935,15 +2771,15 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
     torch.cuda.empty_cache()
     remat = remat_against_plain(state_bf16.model, recipe_step, OptimConfig(), 2)
     lap("remat_vs_plain")
-
-    # ---- step time at the recipe batch (the plain turns), memory, launches,
-    # conversions, idle share
-    remat["timing"] = remat_timing(state_bf16.model, recipe_step, OptimConfig(), dev,
-                                   TUBE_REMAT_TIMED_STEPS)
-    torch.cuda.empty_cache()
-    lap("timing_bfloat16")
+    remat["peaks"] = remat_peaks(state_bf16.model, recipe_step, OptimConfig(), dev)
+    lap("remat_peaks")
     del state_bf16
     torch.cuda.empty_cache()
+
+    # ---- (g) the operator's profiler on this step, one traced step
+    profiled = profile_cli("train3d")
+    torch.cuda.empty_cache()
+    lap("profile_cli")
     emit("tube3d", card=report, batch=TUBE_BATCH, frames=TUBE_FRAMES, views=1,
          image_size=IMAGE_SIZE, spectrogram=list(cfg.shape), cli_dtype="bfloat16",
          cli_steps=TUBE_STEPS, cli_eval_videos=TUBE_EVAL_VIDEOS,
@@ -2955,13 +2791,12 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
          perframe_mask_flips_vs_plain=flips, bf16_vs_fp32=bars, overfit_dtype="bfloat16",
          overfit_lr=OVERFIT_LR, overfit_losses=overfit,
          bn3d_running_stats_vs_hand_max_rel_err=bn_err,
-         train_step_ms=remat["timing"]["plain"]["step_ms_mean"],
          remat_cli={"steps": TUBE_REMAT_CLI_STEPS, "launches": remat_launches,
                     "bn_launches": remat_bn_launches,
                     "segments": remat_segments[0],
                     "seconds_host_clock": round(remat_cli_s, 2),
                     "final": {k: remat_final[k] for k in ("loss", "test_ciou", "test_auc")}},
-         remat_bf16=remat, part_seconds=lap.seconds)
+         remat_bf16=remat, profile_cli=profiled, part_seconds=lap.seconds)
     return {"train_3d": {**launches, "batchnorm": bn_launches},
             "train_3d_remat": {**remat_launches, "batchnorm": remat_bn_launches}}
 
@@ -3001,8 +2836,7 @@ def clip_pair_pretrain(root: str) -> dict:
             "cli_seconds_host_clock": round(time.monotonic() - t0 - write_s, 2)}
 
 
-def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
-                   shared: str) -> dict[str, dict[str, int]]:
+def phase_flowcons(dev: torch.device, report: str, shared: str) -> dict[str, dict[str, int]]:
     """Returns K1's and K3's launches on the consistency trainer's CLI run
     and on the pretrainer's run on real clip pairs."""
     from avtubes_torch.cli import export_torch
@@ -3011,7 +2845,6 @@ def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
     from avtubes_torch.models.flownet import FlowNetLite
     from avtubes_torch.train import flow as flow_train
     from avtubes_torch.train.state import create_train_state
-    from profile_torch_train_step import flowcons_step_parts_ms, recipe_batch
 
     cfg = SpectrogramConfig()
     torch.cuda.empty_cache()
@@ -3107,28 +2940,21 @@ def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
     clip_pairs = clip_pair_pretrain(os.path.join(shared, "clip_pairs"))
     lap("pretrain_on_clip_pairs")
 
-    # ---- step time at the recipe batch, with the flow and without; shares, memory
+    # ---- (f) one bf16 step at the recipe batch: the frozen flow net runs
+    # K3's forward once and its backward never
     del small
     torch.cuda.empty_cache()
     clips, waves, draws = recipe_batch(dev, FLOWCONS_BATCH, TRAIN_FRAMES, IMAGE_SIZE, cfg,
                                        seed=SEED)
     _, state, net = curve("kernel", [], "bfloat16")
-    by_flow = {}
-    for name, weight, on in (("flow", FLOWCONS_WEIGHT, True), ("no_flow", 0.0, False)):
-        by_flow[name] = timed(lambda weight=weight, on=on: flow_train.flow_fused_train_step(
-            state, net, clips, waves, draws.flip1, cfg, weight, compute_flow=on), dev,
-            FLOWCONS_TIMED_STEPS)
-    by_flow["flow"]["step_parts_ms"] = flowcons_step_parts_ms(
-        state, net, clips, waves, draws.flip1, cfg, FLOWCONS_WEIGHT)
-    step_ms = by_flow["flow"]["train_step_ms"]
-    flow_net_ms = by_flow["flow"]["step_parts_ms"]["frozen_flow_net_K3"]
-    k3_ms = by_flow["flow"]["profile"]["k3_forward_kernel_ms_per_step"]
-    require(by_flow["flow"]["profile"]["k3_forward_launches_per_step"] == 1
-            and by_flow["flow"]["profile"]["k3_backward_kernel_ms_per_step"] == 0.0,
-            by_flow["flow"]["profile"])
+    before = k3_counts()
+    flow_train.flow_fused_train_step(state, net, clips, waves, draws.flip1, cfg,
+                                     FLOWCONS_WEIGHT)
+    recipe_k3 = {k: v - before[k] for k, v in k3_counts().items()}
+    require(recipe_k3 == {"forward": 1, "backward": 0}, recipe_k3)
     del state, net
     torch.cuda.empty_cache()
-    lap("timing")
+    lap("recipe_step_k3")
     emit("flowcons", card=report, batch=FLOWCONS_BATCH, frames=TRAIN_FRAMES, views=1,
          frame_pairs=FLOWCONS_BATCH * (TRAIN_FRAMES - 1), image_size=IMAGE_SIZE,
          spectrogram=list(cfg.shape), cli_dtype="bfloat16", flow_loss_weight=FLOWCONS_WEIGHT,
@@ -3137,10 +2963,7 @@ def phase_flowcons(dev: torch.device, report: str, k3_times: dict,
          max_memory_allocated_gib_cli=cli_peak_gib, curve_dtype="float32",
          curve_batch=FLOWCONS_CURVE_BATCH, curve_kernel=kernel_curve, curve_plain=plain_curve,
          curve_max_rel_diff_vs_plain=rel, pretrain_on_clip_pairs=clip_pairs,
-         train_step_ms=step_ms, train_step_ms_no_flow=by_flow["no_flow"]["train_step_ms"],
-         flow_net_share_of_step=flow_net_ms / step_ms, k3_forward_share_of_step=k3_ms / step_ms,
-         k3_forward_kernel_ms_batch300=k3_times["kernel_ms_batch300"], by_flow=by_flow,
-         part_seconds=lap.seconds)
+         recipe_step_k3_launches=recipe_k3, part_seconds=lap.seconds)
     return {"flow_consistency": {"stft": launches["stft"], "correlation": launches["forward"],
                                  "correlation_backward": launches["backward"]},
             "flow_pretrain_clips": {"correlation": clip_pairs["launches"]["forward"],
@@ -3358,7 +3181,6 @@ def phase_library(dev: torch.device, report: str, refs: dict) -> None:
     require(mel.shape == (LIBRARY_BATCH, MEL_BINS, cfg.num_frames) and mel.is_cuda, mel.shape)
     mel_err = float(np.abs(mel.cpu().numpy().astype(np.float64) - refs["mel_oracle"]).max())
     require(mel_err <= MEL_ATOL, f"log-mel on the card vs the float64 oracle: {mel_err}")
-    mel_ms = cuda_ms(lambda: log_mel_spectrogram(waves, cfg, MEL_BINS), iters=10)
     lap("log_mel")
     zoo = {}
     for name, (model, inputs) in refs["cases"].items():
@@ -3366,20 +3188,18 @@ def phase_library(dev: torch.device, report: str, refs: dict) -> None:
         x = [torch.from_numpy(a).to(dev) for a in inputs]
         with torch.no_grad():
             out = model(*x)
-            ms = cuda_ms(lambda: model(*x), iters=3, warmup=1)
         want = refs["refs"][name]
         got = out.float().cpu().numpy()
         require(got.shape == want.shape and np.isfinite(got).all(), (name, got.shape))
         err = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
         require(err <= ZOO_RTOL, f"{name} on the card vs the CPU: {err} of the largest entry")
         zoo[name] = {"input_shapes": [list(a.shape) for a in inputs],
-                     "output_shape": list(got.shape), "max_rel_err_vs_cpu": err,
-                     "forward_ms": ms}
+                     "output_shape": list(got.shape), "max_rel_err_vs_cpu": err}
         model.cpu()
     lap("zoo")
     emit("library", card=report, log_mel={"input_shape": list(waves.shape),
                                           "output_shape": list(mel.shape),
-                                          "max_abs_err_vs_float64": mel_err, "ms": mel_ms},
+                                          "max_abs_err_vs_float64": mel_err},
          zoo=zoo, part_seconds=lap.seconds)
 
 
@@ -3403,7 +3223,6 @@ DDP_FEATURE_GRAD_RTOL = 1e-3
 # the largest over the tensors, is held to at most this multiple of the
 # plain step's, plus 1e-3
 DDP_GRAD_VS_FLOAT64_RATIO = 1.25
-DDP_TIMED_STEPS = 2
 #: collectives of one flagship step in a group: each of the 60 BatchNorm
 #: calls (20 a tower, the image tower twice) all-gathers its statistics and
 #: all-reduces its two gradient sums; each view's head all-gathers the audio
@@ -3525,17 +3344,6 @@ def step_outcome(state, step) -> tuple[float, dict, dict, dict]:
             audio)
 
 
-def event_ms(step, state, n: int) -> list[float]:
-    """Each of `n` steps' milliseconds by CUDA events."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    events[0].record()
-    for i in range(n):
-        step(state)
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-
-
 def shard_request(proc: subprocess.Popen, frame: np.ndarray, wave: np.ndarray,
                   samplerate: int) -> tuple[str, np.ndarray]:
     """One request to a started `python -m avtubes_torch.cli.serve --shard`
@@ -3590,7 +3398,6 @@ MESH_COLLECTIVES_PER_STEP = {"1frame": {"all_gather": 41, "all_reduce": 42},
                              "3d": {"all_gather": 41, "all_reduce": 42},
                              "flow_consistency": {"all_gather": 41, "all_reduce": 42},
                              "flow_pretrain": {"all_gather": 0, "all_reduce": 1}}
-MESH_TIMED_STEPS = 2
 
 
 def mesh_jobs(shared: str, dirs: dict[str, str]) -> list[dict]:
@@ -3745,8 +3552,6 @@ def mesh_step_cases(dev: torch.device, cfg: SpectrogramConfig, shared: str) -> d
     )
     from avtubes_torch.train.steps import hardway_1frame_fused_step, train3d_fused_step
 
-    from profile_torch_train_step import recipe_batch
-
     frames, waves1, flips = one_frame_batch(dev, SEED + 11)
     clips, waves, draws = recipe_batch(dev, TUBE_BATCH, TUBE_FRAMES, IMAGE_SIZE, cfg,
                                        seed=SEED + 12)
@@ -3783,19 +3588,15 @@ def mesh_steps_in_a_group(dev: torch.device, cfg: SpectrogramConfig, shared: str
     runs float32 only) within 1e-3 of each tensor's largest entry of the
     plain step's; the 3D and consistency steps' loss and statistics only (a
     float64 step of either at the recipe batch is too slow for the smoke).
-    Each group step's collectives are counted, and each group and plain
-    step is timed by CUDA events."""
+    Each group step's collectives are counted."""
     cases = mesh_step_cases(dev, cfg, shared)
     states = {k: (make(), make()) for k, (make, _) in cases.items()}    # (plain, group)
     plain = {k: mesh_outcome(states[k][0], step) for k, (_, step) in cases.items()}
-    group, calls, group_ms = {}, {}, {}
+    group, calls = {}, {}
     with one_rank_group():
         for kind, (_, step) in cases.items():
             with collectives_counted() as calls[kind]:
                 group[kind] = mesh_outcome(states[kind][1], step)
-            group_ms[kind] = event_ms(step, states[kind][1], MESH_TIMED_STEPS)
-    plain_ms = {k: event_ms(step, states[k][0], MESH_TIMED_STEPS)
-                for k, (_, step) in cases.items()}
     del states
     make, step = cases["1frame"]
     f64_state = make()
@@ -3825,8 +3626,7 @@ def mesh_steps_in_a_group(dev: torch.device, cfg: SpectrogramConfig, shared: str
         out[kind] = {"loss_group": lg, "loss_plain": lp, "loss_rel_diff": loss_rel,
                      "running_stats_max_rel_err": stats_err,
                      "grad_max_rel_err_vs_plain": worst(grad_err),
-                     "collectives_per_step": calls[kind], "step_ms_group": group_ms[kind],
-                     "step_ms_plain": plain_ms[kind]}
+                     "collectives_per_step": calls[kind]}
         if kind == "flow_pretrain":
             require(worst(grad_err)[1] <= 1e-3, worst(grad_err))
     vs_f64 = {}
@@ -3914,12 +3714,11 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
     one float32 step in a one-rank NCCL group against the plain step and a
     float64 one, `ShardedArtifactRunner` with one and two replicas on the
     card, and one request through `serve --shard` (the torchrun run and the
-    server: `starts`, begun before phase quant).  The group's step is timed
-    after the torchrun run has ended.  The same rank then runs the 1-frame,
-    3D, consistency and pretrain CLIs and test_quantitative, held to the
-    earlier phases' single processes (`mesh_cli_runs`), and one float32
-    step of each of those trainers runs in a one-rank group against the
-    plain step (`mesh_steps_in_a_group`).  Returns every kernel's launches
+    server: `starts`, begun before phase quant).  The same rank then runs
+    the 1-frame, 3D, consistency and pretrain CLIs and test_quantitative,
+    held to the earlier phases' single processes (`mesh_cli_runs`), and one
+    float32 step of each of those trainers runs in a one-rank group against
+    the plain step (`mesh_steps_in_a_group`).  Returns every kernel's launches
     on each torchrun CLI run (`train_ddp`, `*_ddp`) and on the two-replica
     bf16 serving (`serve_shard`)."""
     import torch.distributed as dist
@@ -3928,8 +3727,6 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
     from avtubes_torch.core.config import OptimConfig
     from avtubes_torch.core.serving import ShardedArtifactRunner
     from avtubes_torch.train.steps import hardway_fused_train_step
-
-    from profile_torch_train_step import recipe_batch
 
     cfg = SpectrogramConfig()
     lap = Laps()
@@ -3955,7 +3752,7 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
                 require(all(b % n == 0 for b in runner.buckets)
                         and runner.devices == [torch.device(d) for d in devices],
                         (runner.buckets, runner.devices))
-                masks, heat, stats, wall, launches = serve_requests(runner, frames, waves, n)
+                masks, heat, stats, launches = serve_requests(runner, frames, waves, n)
                 ref_masks, ref_heat, ref_model = base[dtype]
                 if dtype == "float32":
                     vs = compare(masks, heat, ref_masks, ref_heat,
@@ -3968,11 +3765,8 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
                         ref_logits = ref_model(nf, spec).logits.float().cpu().numpy()
                     vs = bf16_vs_fp32(masks, heat, ref_masks, ref_heat, logits, ref_logits)
                 key = f"{n}_replicas_{dtype}"
-                sharded[key] = {"vs_artifact_runner": vs,
-                                "requests_per_s": N_REQUESTS / wall,
-                                "batch_hist": stats["batch_hist"], "launches": launches,
-                                "buckets": runner.buckets,
-                                "batch_ms_by_events": stats["batch_ms_by_events"]}
+                sharded[key] = {"vs_artifact_runner": vs, "batch_hist": stats["batch_hist"],
+                                "launches": launches, "buckets": runner.buckets}
                 launches_by_run[key] = launches
                 del runner
         lap("sharded_serving")
@@ -4037,7 +3831,6 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
         group_state = _step_copy(model, False, OptimConfig())
         with collectives_counted() as calls:
             grouped = step_outcome(group_state, step)
-        group_ms = event_ms(step, group_state, DDP_TIMED_STEPS)
     finally:
         distributed.shutdown()
         for k, v in saved_env.items():
@@ -4045,7 +3838,6 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    plain_ms = event_ms(step, plain_state, DDP_TIMED_STEPS)
     del plain_state, group_state
     # the same step in float64 (the backbones; the head is float32 always):
     # the yardstick of both float32 steps' gradients
@@ -4121,14 +3913,12 @@ def phase_multigpu(dev: torch.device, report: str, shared: str,
                     "audio_max_pool_argmax_switches_of_the_group": switches,
                     "adam_update": {"moved": moved, "split": split, "total": total},
                     "running_stats_max_rel_err": worst(stats_err),
-                    "collectives_per_step": calls, "step_ms_group": group_ms,
-                    "step_ms_plain": plain_ms},
+                    "collectives_per_step": calls},
          torchrun_cli_global_batch=mesh_cli, fp32_steps_global_batch=mesh_steps,
          sharded=sharded, serve_shard={"line": sharding, "http_heatmap_pearson": http_pearson},
          overlap=("the torchrun run and the server start as subprocesses before phase "
-                  "quant and run beside it and the sharded requests served here: "
-                  "those requests/s and the torchrun run's seconds are taken side by "
-                  "side"),
+                  "quant and run beside it and the sharded requests served here: the "
+                  "torchrun run's seconds are taken side by side with them"),
          part_seconds=lap.seconds)
     jobs = child["jobs"]
 
@@ -4164,16 +3954,16 @@ def main() -> int:
     lap("serve")
     # the trainers' checkpoints that the later phases read
     with tempfile.TemporaryDirectory() as shared:
-        flow_launches = phase_flow(dev, report, results["correlation"], shared)
+        flow_launches = phase_flow(dev, report, shared)
         lap("flow")
         train_launches = phase_train(dev, report, shared)
         lap("train")
         native_launches = phase_native(dev, report, shared, runner_bf16)
-        lap("native")
-        int8_launches = phase_int8(dev, report, shared, runner_bf16)
         del runner_bf16
+        lap("native")
+        int8_launches = phase_int8(dev, report, shared)
         lap("int8")
-        flowcons = phase_flowcons(dev, report, results["correlation"], shared)
+        flowcons = phase_flowcons(dev, report, shared)
         lap("flowcons")
         train1f_launches = phase_train1f(dev, report, shared)
         lap("train1f")

@@ -91,13 +91,9 @@ def test_light_module_import_stays_light():
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
-                                  ROOT / "scripts" / "profile_torch_serving.py",
-                                  ROOT / "scripts" / "profile_torch_flow_step.py",
-                                  ROOT / "scripts" / "profile_torch_train_step.py",
                                   ROOT / "scripts" / "profile_torch_kernel_variants.py",
-                                  ROOT / "scripts" / "profile_torch_dtype_matrix.py",
                                   ROOT / "scripts" / "profile_torch_loader.py",
-                                  ROOT / "scripts" / "profile_torch_warmup.py",
+                                  *sorted(ROOT.glob("tests/test_torch_port_*_card.py")),
                                   *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):

@@ -2,8 +2,9 @@
 `train3d_step` (loss, NP-ratio, both towers' BatchNorm statistics after ONE
 update each, the audio tower's gradient against the JAX package's eager
 one, the parameters after one Adam update), the fused step with view 1's
-flips from the JAX key, and three free-running steps.  The evaluations and
-the trainer are in `test_torch_port_eval3d.py`."""
+flips from the JAX key, and three free-running steps; and the view-1 flips
+that the 1-frame, 3D and consistency trainers draw by `draw_view1_flips`.
+The evaluations and the trainer are in `test_torch_port_eval3d.py`."""
 
 import dataclasses
 
@@ -204,3 +205,62 @@ def test_three_free_running_steps_at_lr_1e_4_follow_the_jax_loss_curve(host_stat
         assert abs(mt["loss"] - mj["loss"]) <= 5e-3 * abs(mj["loss"]), (mt, mj)
         assert np.isfinite(mt["np_ratio"])
     assert state.step == int(js.step) == 3
+
+
+# each trainer whose view-1 flips `train3d.draw_view1_flips` draws: its module,
+# its fused step, the step's argument that takes the flips, the generator's
+# seed offset, the flags of a 1-step run on the synthetic set and `run`'s options
+FLIP_TRAINERS = {
+    "1frame": ("hardway_1frame", "hardway_1frame_fused_step", 3, 3,
+               ["--image_size", "64", "--samplerate", "8000", "--audio_seconds", "1",
+                "--eval_batch_size", "3"], {"do_eval": False}),
+    "tube3d": ("train3d", "train3d_fused_step", 3, 2,
+               ["--image_size", "32", "--frame_density", "2", "--samplerate", "8000",
+                "--audio_seconds", "1"], {"do_eval": False}),
+    "flow": ("flow", "flow_fused_train_step", 4, 4,
+             ["--image_size", "64", "--frame_density", "3", "--samplerate", "8000",
+              "--audio_seconds", "1"], {"flow_loss_weight": 0.1}),
+}
+
+
+@pytest.mark.parametrize("kind", FLIP_TRAINERS)
+def test_the_trainers_draw_each_step_s_flips_by_draw_view1_flips(kind, tmp_path, monkeypatch):
+    """One call of `draw_view1_flips` a step, with the global batch, from
+    the epoch's generator (`(seed + k) * 1_000_003 + epoch`); the fused
+    step gets this rank's rows of that draw."""
+    import importlib
+
+    from avtubes_torch.core.config import ExperimentConfig
+    from avtubes_torch.core.distributed import rows_of
+    from avtubes_torch.train import train3d
+
+    name, step_name, flips_at, offset, flags, options = FLIP_TRAINERS[kind]
+    trainer = importlib.import_module(f"avtubes_torch.train.{name}")
+    draws, stepped = [], []
+    real_draw, real_step = train3d.draw_view1_flips, getattr(trainer, step_name)
+
+    def draw(gen, batch):
+        flips = real_draw(gen, batch)
+        draws.append((gen.initial_seed(), batch, flips))
+        return flips
+
+    def step(*args, **kwargs):
+        stepped.append(args[flips_at])
+        return real_step(*args, **kwargs)
+
+    monkeypatch.setattr(trainer, "draw_view1_flips", draw)
+    monkeypatch.setattr(trainer, step_name, step)
+    batch, seed = 2, 5
+    cfg = ExperimentConfig.from_args(
+        ["--synthetic", "--device", "cpu", "--compute_dtype", "float32", *flags,
+         "--batch_size", str(batch), "--n_threads", "2", "--learning_rate", "1e-4",
+         "--epochs", "1", "--steps", "1", "--seed", str(seed),
+         "--summaries_dir", str(tmp_path)])
+    trainer.run(cfg, steps_cap=1, **options)
+    want_seed = (seed + offset) * 1_000_003 + 0
+    assert [(s, b) for s, b, _ in draws] == [(want_seed, batch)]
+    assert torch.equal(draws[0][2], torch.rand(batch, generator=torch.Generator().manual_seed(
+        want_seed)) < 0.5)
+    assert len(stepped) == 1 and torch.equal(stepped[0], draws[0][2][rows_of(batch)])
+    for path in tmp_path.glob("*_ep*"):
+        path.unlink()
