@@ -46,9 +46,11 @@ tensors, so that the temporal sub-block's (B N, T, D) is a view; the
 spatial one gathers (B T, 1 + N, D) in one copy and scatters its residual
 back in its add. Compute dtype as in `models/resnet2d.py`: the input is cast to
 it, every Linear and LayerNorm casts its float32 parameters per call, and
-attention is `scaled_dot_product_attention` in that dtype (`attend`); the parameters
-and their gradients stay float32. Each block's three sub-blocks are the
-spans `vid.temporal`, `vid.spatial` and `vid.mlp` (`utils/debug.py::span`).
+attention runs in that dtype (`attend`: the hand-written kernels for the
+16-frame attention in bf16 on a card, `scaled_dot_product_attention`
+otherwise); the parameters and their gradients stay float32. Each block's
+three sub-blocks are the spans `vid.temporal`, `vid.spatial` and `vid.mlp`
+(`utils/debug.py::span`).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from avtubes_torch.models.resnet2d import compute_dtype_of
+from avtubes_torch.ops.temporal_attention import temporal_attention, temporal_attention_engages
 from avtubes_torch.utils.debug import span
 
 #: the published widths of TimeSformer-B/16
@@ -76,30 +79,39 @@ def _norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
                         layer.bias.to(x.dtype), layer.eps)
 
 
-#: sequences shorter than this attend through the memory-efficient kernel,
-#: longer ones through flash: flash's 128-row tiles waste most of a 16-frame
-#: sequence (on an H100, 16 frames over 47,040 heads: 6.19 ms forward and
-#: backward by flash, 2.16 memory-efficient; 197 tokens over 3,840: 2.03
-#: flash, 2.83 memory-efficient)
+#: sequences that SDPA takes (`attend`) and shorter than this attend through
+#: the memory-efficient kernel, longer ones through flash: flash's 128-row
+#: tiles waste most of a short sequence (on an H100, 16 frames over 47,040
+#: heads: 6.19 ms forward and backward by flash, 2.16 memory-efficient; 197
+#: tokens over 3,840: 2.03 flash, 2.83 memory-efficient)
 FLASH_FROM = 64
 
 
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(dh)) v over (S, heads, L, dh), fused on a card
-    (flash or memory-efficient by the length, no attention matrix stored);
-    off a card, torch's own choice."""
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(dh)) v per head over (S, L, D) tensors, D =
+    heads * dh, returned as (S, L, D).  On a card: sequences of at most 16
+    tokens in bf16 with heads of 64 (the 16-frame temporal attention) on
+    the hand-written kernels of `ops/temporal_attention.py`, token-major in
+    and out; other sequences through SDPA, flash or memory-efficient by the
+    length, no attention matrix stored.  Off a card, torch's own choice."""
+    s, n, d = q.shape
+    if temporal_attention_engages(q.device, q.dtype, (s, heads, n, d // heads)):
+        return temporal_attention(q, k, v, heads)
+    q, k, v = (t.view(s, n, heads, d // heads).transpose(1, 2) for t in (q, k, v))
     if not q.is_cuda:
-        return F.scaled_dot_product_attention(q, k, v)
-    backend = (SDPBackend.FLASH_ATTENTION if q.shape[-2] >= FLASH_FROM
-               else SDPBackend.EFFICIENT_ATTENTION)
-    with sdpa_kernel(backend):
-        return F.scaled_dot_product_attention(q, k, v)
+        o = F.scaled_dot_product_attention(q, k, v)
+    else:
+        backend = (SDPBackend.FLASH_ATTENTION if n >= FLASH_FROM
+                   else SDPBackend.EFFICIENT_ATTENTION)
+        with sdpa_kernel(backend):
+            o = F.scaled_dot_product_attention(q, k, v)
+    return o.transpose(1, 2).reshape(s, n, d)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention over (S, L, D) sequences.  q, k and v are
     three products over the row blocks of the one `qkv` weight, so that
-    their gradients need no stacking."""
+    their gradients need no stacking, each a contiguous (S, L, D) tensor."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -108,12 +120,10 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s, n, d = x.shape
+        d = x.shape[-1]
         w, b = self.qkv.weight.to(x.dtype), self.qkv.bias.to(x.dtype)
-        q, k, v = (F.linear(x, w[i * d:(i + 1) * d], b[i * d:(i + 1) * d])
-                   .view(s, n, self.heads, d // self.heads).transpose(1, 2) for i in range(3))
-        o = attend(q, k, v)                                          # (S, heads, L, dh)
-        return _linear(o.transpose(1, 2).reshape(s, n, d), self.proj)
+        q, k, v = (F.linear(x, w[i * d:(i + 1) * d], b[i * d:(i + 1) * d]) for i in range(3))
+        return _linear(attend(q, k, v, self.heads), self.proj)
 
 
 class Mlp(nn.Module):

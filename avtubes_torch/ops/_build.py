@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("stft", "median_select", "correlation", "batchnorm")
+KERNELS = ("stft", "median_select", "correlation", "batchnorm", "temporal_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _loaded_lock = threading.Lock()

@@ -44,7 +44,14 @@ Phases, one JSON line each:
               copied no gradient.  The 20 sites a step are timed as the
               kernels, the plain version, `nn.BatchNorm3d` + add + ReLU (the
               path they replace) and that path on (N, C, T*H, W) views beside
-              the four kernels' byte floor.  CUDA-event times of the
+              the four kernels' byte floor; and the temporal attention
+              (`ops/temporal_attention.py`) at TimeSformer-B/16's recipe
+              shape (3,920 sequences x 16 frames x 12 heads of 64): o, the
+              log-sum-exp and the three gradients against the plain version
+              in float32 within bf16's rounding of the terms each sums, two
+              runs bit-equal; the 12 blocks of a step timed as the kernels,
+              the plain version and memory-efficient SDPA beside the bytes'
+              floor.  CUDA-event times of the
               kernel, the plain version and, where there is one, a library
               call beside them: `ms` over back-to-back calls as a caller
               makes them (the host's launch rate is in it), `kernel_ms` over
@@ -153,7 +160,13 @@ Phases, one JSON line each:
               checkpoint segments a step, the BatchNorm's forward kernels 40
               times a step and its backward ones 20); a bf16 `--remat` 3D
               step against plain ones on the checks of phase train, their
-              peak memory in turns.  `cli.profile --mode train3d --steps 1`.
+              peak memory in turns.  `cli.train_3d --video_arch
+              timesformer_b16`: one step and the per-frame test (K1 and K2
+              under `train_3d_timesformer`, no BatchNorm kernel, the
+              temporal-attention kernels 12 times backward and 12 times
+              each forward of the tower, the test's windows included; neither
+              R3D-18 run launches them).  `cli.profile --mode train3d
+              --steps 1`.
 
  10. flowcons the flow-guided consistency trainer at the recipe's width
               (AVENet, 20 clips x 16 frames at 224x224, 257x431
@@ -255,6 +268,7 @@ from avtubes_torch.ops import batchnorm as kbn
 from avtubes_torch.ops import correlation as k3
 from avtubes_torch.ops import median_select as k2
 from avtubes_torch.ops import stft as k1
+from avtubes_torch.ops import temporal_attention as kta
 
 SEED = 0
 IMAGE_SIZE = 224
@@ -336,6 +350,18 @@ BN_SUM_RTOL = 1e-5        # the weight's and bias' gradient sums: this share of 
 BN_KINK = 1e-4            # no gradient compared where the plain output before the ReLU
 #                           lies this near 0: the two masks may differ there by a rounding
 #                           of the statistics, and each would be right
+
+# TimeSformer-B/16's temporal attention at the recipe: 20 clips x 196 patches, 16
+# frames, 12 heads of 64, in each of the 12 blocks of a step
+TA_SHAPE = (TUBE_BATCH * 196, TUBE_FRAMES, 768)
+TA_HEADS = 12
+TA_BLOCKS = 12
+TA_ROUND = 1.01 * 2.0 ** -8  # o, dq, dk, dv against the plain version in float32: within
+#                           this share of (the magnitudes of the terms each sums + the
+#                           result): p or ds rounded to bf16 before its product, the result
+#                           rounded once, each by at most bf16's unit roundoff 2^-8; 1 %
+#                           room for the second-order term and the float32 arithmetic
+TA_LSE_ATOL = 1e-5        # the log-sum-exp, float32 exp2 / log2 (+ 1e-6 of |lse|)
 
 # the flow-guided consistency trainer's recipe shapes
 FLOWCONS_BATCH = 20       # clips a step: B·(T−1) = 300 frame pairs through the frozen flow net
@@ -773,6 +799,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     }
     results["correlation"] = check_correlation(dev)
     results["batchnorm"] = check_batchnorm(dev)
+    results["temporal_attention"] = check_temporal_attention(dev)
     emit("kernels", **results)
     return results
 
@@ -962,6 +989,12 @@ def check_correlation(dev: torch.device) -> dict:
         "backward_bound_ms_batch300": bound(4 * CLIP_PAIRS * h * w * (4 * c + d),
                                             4.0 * CLIP_PAIRS * h * w * c * d)[0],
     }
+
+
+def ta_counts() -> dict[str, int]:
+    """The temporal-attention kernels' launch counters."""
+    return {"forward": kta.temporal_attention_forward_cuda.launches,
+            "backward": kta.temporal_attention_backward_cuda.launches}
 
 
 def bn_counts() -> dict[str, int]:
@@ -1249,6 +1282,129 @@ def check_batchnorm(dev: torch.device) -> dict:
         "library_kernel_ms_forward_as_4d": queued_ms(step(library_4d, backward=False), iters=10),
     }
     del sites, groups, kernel, plain, library, library_4d
+    torch.cuda.empty_cache()
+    return result
+
+
+def ta_errors(q, k, v, dout, got: dict) -> dict[str, float]:
+    """Each result of the temporal-attention kernels against the plain
+    version in float32 on the same bf16 inputs: the largest error over its
+    bound (`TA_ROUND`, `TA_LSE_ATOL`); at most 1 passes."""
+    s, n, d = q.shape
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o = kta.temporal_attention_plain(*leaves, TA_HEADS)
+    want = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(o, leaves, dout.float())))
+    want["o"] = o.detach()
+    qh, kh, vh, doh = (t.float().view(s, n, TA_HEADS, -1).transpose(1, 2)
+                       for t in (q, k, v, dout))
+    scores = qh @ kh.transpose(-1, -2) / 8
+    p = torch.softmax(scores, dim=-1)
+    dp = doh @ vh.transpose(-1, -2)
+    spread = p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())
+    terms = {"o": p @ vh.abs(), "dv": p.transpose(-1, -2) @ doh.abs(),
+             "dq": spread @ kh.abs() / 8, "dk": spread.transpose(-1, -2) @ qh.abs() / 8}
+    out = {}
+    for name, term in terms.items():
+        w = want[name]
+        bound_ = TA_ROUND * (term.transpose(1, 2).reshape(s, n, d) + w.abs())
+        out[name] = float(((got[name].float() - w).abs() / bound_).max())
+    lse = torch.logsumexp(scores, dim=-1)
+    out["lse"] = float(((got["lse"] - lse).abs() / (TA_LSE_ATOL + 1e-6 * lse.abs())).max())
+    out["o_max_abs_err"] = float((got["o"].float() - want["o"]).abs().max())
+    return out
+
+
+def check_temporal_attention(dev: torch.device) -> dict:
+    """The temporal-attention kernels at the recipe shape: o, the
+    log-sum-exp and the three gradients against the plain version in
+    float32 (`ta_errors`), two runs bit-equal; then the 12 blocks of a step,
+    forward and backward, timed as the kernels, as the plain version and as
+    PyTorch's memory-efficient SDPA (the path they replace, a yardstick
+    only), beside the bytes' floor."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    q, k, v, dout = [(torch.randn(TA_SHAPE, device=dev, generator=gen) * 1.5)
+                     .to(torch.bfloat16) for _ in range(4)]
+
+    def kernels():
+        o, lse = kta.temporal_attention_forward_cuda(q, k, v, TA_HEADS)
+        dq, dk, dv = kta.temporal_attention_backward_cuda(q, k, v, dout, lse, TA_HEADS)
+        return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+    first = kernels()
+    torch.cuda.synchronize()
+    errs = ta_errors(q, k, v, dout, first)
+    max_abs_err = errs.pop("o_max_abs_err")
+    require(max(errs.values()) <= 1.0, f"temporal attention off its bounds: {errs}")
+    second = kernels()
+    require(all(torch.equal(t, second[name]) for name, t in first.items()),
+            "temporal attention: two runs differ")
+    lse = first["lse"]
+    del first, second
+
+    def forward():
+        kta.temporal_attention_forward_cuda(q, k, v, TA_HEADS)
+
+    def backward():
+        kta.temporal_attention_backward_cuda(q, k, v, dout, lse, TA_HEADS)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def plain():
+        o = kta.temporal_attention_plain(*leaves, TA_HEADS)
+        torch.autograd.grad(o, leaves, dout)
+
+    s, n, d = TA_SHAPE
+    heads = [t.view(s, n, TA_HEADS, -1).transpose(1, 2) for t in leaves]
+    dout_heads = dout.view(s, n, TA_HEADS, -1).transpose(1, 2)
+
+    def library(backward_too: bool = True):
+        def run():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = torch.nn.functional.scaled_dot_product_attention(*heads)
+            if backward_too:
+                torch.autograd.grad(o, leaves, dout_heads)
+        return run
+
+    tensor = math.prod(TA_SHAPE) * 2
+    lse_bytes = s * TA_HEADS * n * 4
+    floor = {"forward": TA_BLOCKS * (4 * tensor + lse_bytes),          # q k v o, lse
+             "backward": TA_BLOCKS * (8 * tensor + lse_bytes)}         # + o dO dq dk dv
+    own_backward = TA_BLOCKS * (7 * tensor + lse_bytes)                # reads no o
+    fwd_ms = TA_BLOCKS * queued_ms(forward, iters=20)
+    bwd_ms = TA_BLOCKS * queued_ms(backward, iters=20)
+    bound_ms = sum(floor.values()) / PEAK_BYTES_PER_S * 1e3
+    result = {
+        "name": "temporal_attention", "route": "cuda",
+        "source": "avtubes_torch/csrc/temporal_attention.cu",
+        "replaces": "none: the JAX package has no TimeSformer; PyTorch's memory-efficient "
+                    "SDPA ran it",
+        "shape": list(TA_SHAPE), "heads": TA_HEADS, "blocks_a_step": TA_BLOCKS,
+        "max_abs_err": max_abs_err, "max_err_over_bound": errs,
+        # the 12 blocks of a step, forward and backward
+        "ms": TA_BLOCKS * cuda_ms(lambda: (forward(), backward()), iters=10),
+        "kernel_ms": fwd_ms + bwd_ms,
+        "kernel_ms_forward": fwd_ms, "kernel_ms_backward": bwd_ms,
+        "graph_ms": None,
+        "plain_ms": TA_BLOCKS * cuda_ms(plain, iters=5),
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "bound_ms_forward": floor["forward"] / PEAK_BYTES_PER_S * 1e3,
+        "bound_ms_backward": floor["backward"] / PEAK_BYTES_PER_S * 1e3,
+        "bound_bytes": sum(floor.values()),
+        "share_of_bound": bound_ms / (fwd_ms + bwd_ms),
+        # the kernels' own bytes: the backward reads no o
+        "algorithm_bound_ms": (floor["forward"] + own_backward) / PEAK_BYTES_PER_S * 1e3,
+        "algorithm": "a warp an (sequence, head): q k^T, softmax and p v in registers by "
+                     "mma.sync m16n8k16; a 3-slot cp.async ring a warp; one backward launch, "
+                     "the row term from p and dp, no atomics",
+        "library_ms": TA_BLOCKS * cuda_ms(library(), iters=5),
+        "library_kernel_ms": TA_BLOCKS * queued_ms(library(), iters=5),
+        "library_kernel_ms_forward": TA_BLOCKS * queued_ms(library(False), iters=10),
+        "library_call": "scaled_dot_product_attention, EFFICIENT_ATTENTION backend, on "
+                        "(S, heads, L, 64) views, and autograd",
+    }
+    del q, k, v, dout, lse, leaves, heads, dout_heads
     torch.cuda.empty_cache()
     return result
 
@@ -1757,6 +1913,8 @@ def zero_counts() -> None:
     kbn.bn_stats_cuda.launches = kbn.bn_apply_cuda.launches = 0
     kbn.bn_backward_reduce_cuda.launches = kbn.bn_backward_elemt_cuda.launches = 0
     kbn.BatchNormAct.dy_copies = 0
+    kta.temporal_attention_forward_cuda.launches = 0
+    kta.temporal_attention_backward_cuda.launches = 0
 
 
 def run_cli(main, args: list[str]) -> tuple[dict, dict[str, int], float, float]:
@@ -2661,6 +2819,7 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
                 "--summaries_dir", run_dir]
         final, launches, cli_s, cli_peak_gib = run_cli(cli.main, args)
         bn_launches = bn_counts()   # set to 0 by run_cli just before
+        ta_launches = ta_counts()
         with open(os.path.join(run_dir, "tube3d.metrics.jsonl")) as fh:
             steps = [r for r in map(json.loads, fh) if "loss" in r]
         require(len(steps) == TUBE_STEPS
@@ -2674,6 +2833,7 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
         n = TUBE_BN_SITES * TUBE_STEPS
         require(bn_launches == {"stats": n, "apply": n, "backward_reduce": n,
                                 "backward_elemt": n, "dy_copies": 0}, bn_launches)
+        require(not any(ta_launches.values()), ta_launches)
         ckpts = check_checkpoint(run_dir, "tube3d")
         for name in (ckpts[0], "tube3d.metrics.jsonl"):
             shutil.copy(os.path.join(run_dir, name), shared)
@@ -2688,6 +2848,7 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
         with segments_counted() as remat_segments:
             remat_final, remat_launches, remat_cli_s, _ = run_cli(cli.main, remat_args)
             remat_bn_launches = bn_counts()
+            remat_ta_launches = ta_counts()
         require(remat_segments[0] == 2 * TUBE_REMAT_CLI_STEPS, remat_segments)  # video, audio
         require(np.isfinite(remat_final["loss"]) and all(
             0.0 <= remat_final[k] <= 1.0 for k in ("test_ciou", "test_auc", "test_mtc")),
@@ -2698,7 +2859,26 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
         n = TUBE_BN_SITES * TUBE_REMAT_CLI_STEPS
         require(remat_bn_launches == {"stats": 2 * n, "apply": 2 * n, "backward_reduce": n,
                                       "backward_elemt": n, "dy_copies": 0}, remat_bn_launches)
+        require(not any(remat_ta_launches.values()), remat_ta_launches)
     lap("cli_remat")
+
+    # ---- (a'') TimeSformer-B/16 as the tube encoder: one step and the per-frame test
+    with tempfile.TemporaryDirectory() as ts_dir:
+        ts_args = [*args[:args.index("--steps")], "--steps", "1", "--seed", str(SEED),
+                   "--video_arch", "timesformer_b16", "--summaries_dir", ts_dir]
+        ts_final, ts_launches, ts_cli_s, ts_peak_gib = run_cli(cli.main, ts_args)
+        ts_bn_launches, ts_ta_launches = bn_counts(), ta_counts()
+    require(np.isfinite(ts_final["loss"]) and all(
+        0.0 <= ts_final[k] <= 1.0 for k in ("test_ciou", "test_auc", "test_mtc")), ts_final)
+    require(ts_launches == {"stft": 1 + TUBE_EVAL_VIDEOS, "median_select": TUBE_EVAL_VIDEOS},
+            ts_launches)
+    require(not any(ts_bn_launches.values()), ts_bn_launches)
+    # the step: each block's temporal attention once forward and once backward;
+    # the test: once a block for each forward of the tower over its windows
+    require(ts_ta_launches["backward"] == TA_BLOCKS and ts_ta_launches["forward"] > TA_BLOCKS
+            and ts_ta_launches["forward"] % TA_BLOCKS == 0, ts_ta_launches)
+    torch.cuda.empty_cache()
+    lap("cli_timesformer")
 
     # ---- (b) float32 steps with the plain K1, and one video's masks with the plain K1 + K2
     small = [recipe_batch(dev, TUBE_CURVE_BATCH, TUBE_FRAMES, IMAGE_SIZE, cfg, seed=SEED + i)
@@ -2796,9 +2976,18 @@ def phase_tube3d(dev: torch.device, report: str, shared: str) -> dict[str, dict]
                     "segments": remat_segments[0],
                     "seconds_host_clock": round(remat_cli_s, 2),
                     "final": {k: remat_final[k] for k in ("loss", "test_ciou", "test_auc")}},
+         timesformer_cli={"steps": 1, "launches": ts_launches,
+                          "temporal_attention_launches": ts_ta_launches,
+                          "seconds_host_clock": round(ts_cli_s, 2),
+                          "max_memory_allocated_gib": ts_peak_gib,
+                          "final": {k: ts_final[k] for k in ("loss", "test_ciou", "test_auc")}},
          remat_bf16=remat, profile_cli=profiled, part_seconds=lap.seconds)
-    return {"train_3d": {**launches, "batchnorm": bn_launches},
-            "train_3d_remat": {**remat_launches, "batchnorm": remat_bn_launches}}
+    return {"train_3d": {**launches, "batchnorm": bn_launches,
+                         "temporal_attention": ta_launches},
+            "train_3d_remat": {**remat_launches, "batchnorm": remat_bn_launches,
+                               "temporal_attention": remat_ta_launches},
+            "train_3d_timesformer": {**ts_launches, "batchnorm": ts_bn_launches,
+                                     "temporal_attention": ts_ta_launches}}
 
 
 def flow_records(run_dir: str) -> list[dict]:
@@ -4015,9 +4204,14 @@ def main() -> int:
                # the fused BatchNorm's four kernels together: the tube trainer's
                # paths alone (its group path, train_3d_ddp, keeps PyTorch's)
                "batchnorm": {path: sum(v for k, v in c["batchnorm"].items() if k != "dy_copies")
-                             for path, c in tube3d_launches.items()}}
+                             for path, c in tube3d_launches.items()},
+               # the tube trainer's paths: TimeSformer's alone reaches the kernels
+               "temporal_attention": {path: sum(c["temporal_attention"].values())
+                                      for path, c in tube3d_launches.items()}}
     results["batchnorm"]["launches_by_kernel"] = {
         path: c["batchnorm"] for path, c in tube3d_launches.items()}
+    results["temporal_attention"]["launches_by_kernel"] = {
+        path: c["temporal_attention"] for path, c in tube3d_launches.items()}
     # the backward kernel runs on the pretrainer's paths alone: the
     # consistency trainer's flow net is frozen
     backward_by_path = {

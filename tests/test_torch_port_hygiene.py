@@ -38,13 +38,15 @@ def test_expected_modules_exist():
                  "tools.create_training_set", "tools.convert_to_jpg",
                  "tools.convert_jpg_to_mp4", "tools.download_flickr", "models.zoo",
                  "models.remat", "core.distributed", "models.norm", "parallel",
-                 "ops.batchnorm"):
+                 "ops.batchnorm", "ops.temporal_attention"):
         assert f"avtubes_torch.{name}" in MODULES
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "batchnorm.cu", "correlation.cu", "median_select.cu", "stft.cu"]
+        "batchnorm.cu", "correlation.cu", "median_select.cu", "stft.cu",
+        "temporal_attention.cu"]
     from avtubes_torch.ops import _build
 
-    assert sorted(_build.KERNELS) == ["batchnorm", "correlation", "median_select", "stft"]
+    assert sorted(_build.KERNELS) == ["batchnorm", "correlation", "median_select", "stft",
+                                      "temporal_attention"]
 
 
 def test_importing_every_module_pulls_in_no_jax_and_builds_nothing():
