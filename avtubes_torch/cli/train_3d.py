@@ -12,7 +12,8 @@ It runs on the card (`--device cuda`, the default, raises without one;
 `cli/train_hardway.py`), TF32 off.  Prints `final: {...}`, the last step's
 and the last per-frame test's metrics.  `--video_arch timesformer_b16`
 trains FullModel with TimeSformer-B/16 (divided space-time attention) as its
-tube encoder, over clips of `--frame_density` frames at `--image_size`.
+tube encoder, `--video_arch swin3d_b` with Video Swin-B (3-D shifted-window
+attention), over clips of `--frame_density` frames at `--image_size`.
 
 More than one process, one card each (`core/distributed.py`; NCCL, or gloo
 with `--device cpu`), as under the JAX package's data mesh: `--batch_size`

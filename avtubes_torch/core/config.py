@@ -100,7 +100,7 @@ class TrainConfig:
     #                                    'sum'); carried, the port has
     #                                    `nn.Conv3d` only
     video_arch: str = "r3d18"          # the 3D trainer's tube encoder
-    #                                    ('r3d18' | 'timesformer_b16')
+    #                                    ('r3d18' | 'timesformer_b16' | 'swin3d_b')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,10 +168,12 @@ class ExperimentConfig:
                        help="tube-encoder conv3d lowering of the JAX package "
                             "(3D trainer only; carried, not read by the port)")
         p.add_argument("--video_arch", default="r3d18", type=str,
-                       help="the 3D trainer's tube encoder: 'r3d18' or "
+                       help="the 3D trainer's tube encoder: 'r3d18', "
                             "'timesformer_b16' (TimeSformer-B/16, divided "
-                            "space-time attention, over clips of "
-                            "--frame_density frames at --image_size)")
+                            "space-time attention) or 'swin3d_b' (Video "
+                            "Swin-B, 3-D shifted-window attention), the "
+                            "transformers over clips of --frame_density "
+                            "frames at --image_size")
         p.add_argument("--audio_transport", default="int16", type=str,
                        choices=["float32", "int16", "spec_int16", "spec_int8"],
                        help="audio payload: raw f32, int16 PCM (lossless for "

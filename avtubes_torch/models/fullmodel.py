@@ -17,12 +17,13 @@ less audio work.  The backbones compute in `compute_dtype` (see
 net keeps torch's constant-1 BatchNorm scale (`bn_scale_noise=False`).
 `remat` checkpoints each backbone call in training (`models/remat.py`).
 
-`video_arch` picks the tube encoder: "r3d18" (the default, above) or
+`video_arch` picks the tube encoder: "r3d18" (the default, above),
 "timesformer_b16", TimeSformer-B/16 with divided space-time attention
-(`models/timesformer.py`) over clips of `frames` frames at `image_size`,
-its 768-wide output mapped to the head's 512 by a bias-free `vidnet.proj`
-and a ReLU.
-Such a tower takes clips of exactly `frames` frames (`clip_frames`).
+(`models/timesformer.py`), or "swin3d_b", Video Swin-B with 3-D
+shifted-window attention (`models/swin3d.py`); each transformer runs over
+clips of exactly `frames` frames at `image_size` (the tower's
+`clip_frames`), its output (768 or 1024 wide) mapped to the head's 512 by a
+bias-free `vidnet.proj` and a ReLU.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ from avtubes_torch.models.hardway import HardwayConfig, HardwayOutput, hardway_h
 from avtubes_torch.models.remat import call_backbone
 from avtubes_torch.models.resnet2d import ResNet2D, compute_dtype_of
 from avtubes_torch.models.resnet3d import ResNet3D
+from avtubes_torch.models.swin3d import Swin3D
 from avtubes_torch.models.timesformer import TimeSformer
 from avtubes_torch.parallel import pool_head
 
 #: the tube encoders FullModel can be built with
-VIDEO_ARCHS = ("r3d18", "timesformer_b16")
+VIDEO_ARCHS = ("r3d18", "timesformer_b16", "swin3d_b")
 #: the feature width the hard-way head takes from both towers
 FEATURES = 512
 
@@ -58,15 +60,16 @@ class FullModel(nn.Module):
         if video_arch == "r3d18":
             self.vidnet = ResNet3D(generator=generator, compute_dtype=self.compute_dtype)
         else:
-            self.vidnet = TimeSformer(image_size, frames, proj_dim=FEATURES,
-                                      generator=generator, compute_dtype=self.compute_dtype)
+            tower = TimeSformer if video_arch == "timesformer_b16" else Swin3D
+            self.vidnet = tower(image_size, frames, proj_dim=FEATURES, generator=generator,
+                                compute_dtype=self.compute_dtype)
         self.audnet = ResNet2D(modal="audio", bn_scale_noise=False, generator=generator,
                                compute_dtype=self.compute_dtype)
 
     @property
     def clip_frames(self) -> int | None:
         """The one frame count the tube encoder takes, or None for any."""
-        return self.vidnet.frames if self.video_arch == "timesformer_b16" else None
+        return self.vidnet.clip_frames
 
     def encode_video(self, video: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> (B, T, H/16, W/16, 512)."""

@@ -146,6 +146,8 @@ class ResNet3D(nn.Module):
 
     #: the layout of activations and conv weights inside
     memory_format = torch.channels_last_3d
+    #: it takes clips of any frame count (`FullModel.clip_frames`)
+    clip_frames = None
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  stage_filters: Sequence[int] = (64, 128, 256, 512),

@@ -217,6 +217,8 @@ class TimeSformer(nn.Module):
             raise ValueError(f"image_size {image_size} is not a multiple of the patch {patch}")
         self.compute_dtype = compute_dtype_of(compute_dtype)
         self.image_size, self.frames, self.patch = image_size, frames, patch
+        #: the one frame count this tower takes (`FullModel.clip_frames`)
+        self.clip_frames = frames
         self.grid = image_size // patch
         self.patch_embed = PatchEmbed(patch, 3, dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))

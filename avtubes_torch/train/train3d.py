@@ -22,10 +22,11 @@ ported raises: see `train/hardway.py::check_supported`, and
 `--conv3d_impl` other than `direct`.
 
 `--video_arch timesformer_b16` builds FullModel with TimeSformer-B/16 as its
-tube encoder (`models/timesformer.py`) over clips of `--frame_density`
-frames at `--image_size`; no original checkpoint of it exists, so a
-warm start from one raises.  The per-frame test takes such a tower's
-fixed clip length in windows (`train/evaluate.py`).
+tube encoder (`models/timesformer.py`), `--video_arch swin3d_b` with Video
+Swin-B (`models/swin3d.py`), over clips of `--frame_density` frames at
+`--image_size`; no original checkpoint of either exists, so a warm start
+from one raises.  The per-frame test takes such a tower's fixed clip length
+in windows (`train/evaluate.py`).
 
 Across processes (`core/distributed.py`) `--batch_size` is the GLOBAL batch
 of clips, each rank holding its contiguous rows: the 3-D and 2-D BatchNorm
@@ -78,8 +79,8 @@ TAG = "tube3d"
 
 def check_supported_3d(cfg: ExperimentConfig) -> None:
     """`check_supported`; `--conv3d_impl` other than `direct`, an unknown
-    `--video_arch`, and a warm start of `timesformer_b16` from an original
-    checkpoint raise."""
+    `--video_arch`, and a warm start of a transformer tower
+    (`timesformer_b16`, `swin3d_b`) from an original checkpoint raise."""
     check_supported(cfg)
     if cfg.train.conv3d_impl != "direct":
         raise NotImplementedError(
@@ -88,12 +89,12 @@ def check_supported_3d(cfg: ExperimentConfig) -> None:
     t = cfg.train
     if t.video_arch not in VIDEO_ARCHS:
         raise ValueError(f"--video_arch must be one of {VIDEO_ARCHS}, got {t.video_arch!r}")
-    if (t.video_arch == "timesformer_b16" and t.use_pretrained
+    if (t.video_arch != "r3d18" and t.use_pretrained
             and t.pretrained_path.endswith((".pth", ".pth.tar"))):
         raise NotImplementedError(
             f"--use_pretrained --pretrained_path {t.pretrained_path!r} with --video_arch "
-            "timesformer_b16: no original checkpoint of a TimeSformer FullModel exists; "
-            "only the port's own tube3d_ep<N> checkpoints resume it")
+            f"{t.video_arch}: no original checkpoint of a FullModel with that tube encoder "
+            "exists; only the port's own tube3d_ep<N> checkpoints resume it")
 
 
 def draw_view1_flips(gen: torch.Generator, batch: int) -> torch.Tensor:
